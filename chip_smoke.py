@@ -6,19 +6,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit, versions, TF32 off, and the
-   build of every kernel of the serving path from csrc/ (nvcc, sm_90a);
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes and one odd shape, fp32 and bf16;
-3. slice: synthesis requests through make_synthesizer(...).generate and
+   build of every kernel from csrc/ (one nvcc a source, all at once,
+   sm_90a);
+2. kernels: each kernel against its plain PyTorch version on the card:
+   B1 (the GRU recurrence) forward at the serving shapes and one odd shape,
+   fp32 and bf16, and its autograd (kernel forward + PyTorch-ops backward)
+   against autograd through the plain version at the train shapes; B2-B4
+   (the flash contrastive loss) at the train step's N = 96 * 34 and
+   TED-Gesture's 256 * 34, and at a ragged N, D = 32 and 128;
+3. serving: synthesis requests through make_synthesizer(...).generate and
    generate_fused on the full-width 6-level TED Expressive hierarchy
    (hidden 300, 4-layer bi-GRU, full SE-ResNet, bf16 compute, random
-   weights from a seed): output shape, finiteness and the kernel launch
-   counts of every request; then the card's fp32 result against the same
-   port on the CPU (plain versions) for a short clip;
-4. times on the card: end-to-end ms per request and, under
+   weights from a seed): output shape, finiteness and the B1 launch counts
+   of every request; then the card's fp32 result against the same port on
+   the CPU (plain versions) for a short clip;
+4. training: HierarchySystem.train_step of the same hierarchy with
+   configs_expressive/hierarchy.yaml (batch 96, bf16, every loss weight),
+   one warm-up step and four GAN steps on random batches: every loss term
+   finite, the launch counts of B1 (forward and backward) and B2-B4 of
+   every step against the dataflow's, step times and peak memory; one GAN
+   step under torch.profiler; then an fp32 step of a narrow hierarchy on
+   the card against the same port on the CPU, every loss and gradient;
+5. times on the card: end-to-end ms per request and, under
    torch.profiler, where its device time goes and the device's idle
    share; each kernel (CUDA events, median), its bound, its plain
-   version, and the library call that computes the same function.
+   version, and the library call that computes the same function where
+   there is one; B1's PyTorch-ops backward per call.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -50,9 +63,29 @@ B1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 4 * 2 ** -8}
 # cuDNN convolutions (TF32 off) and cuBLAS products against the CPU's,
 # through 21 conv layers and 6 levels x 4 GRU layers
 SLICE_ATOL = 1e-3
+# B1's autograd against autograd through its plain version, relative L2
+# error of each gradient.  fp32: summation order of the products.  bf16:
+# the plain version's graph rounds every step's gradient to bf16 (2^-8
+# relative) where the PyTorch-ops backward keeps fp32, over 34 steps, on
+# top of one-ulp carry flips in the forward.
+B1_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# B2-B4 against their plain versions (random unit rows): sums of N terms
+# in another order; logz and diag relative to themselves, dA and dB
+# relative to the largest entry of the plain result
+B234_LOGZ_RTOL, B234_GRAD_REL = 1e-5, 1e-4
+# the narrow fp32 train step on the card against the port on the CPU:
+# summation order of cuDNN (TF32 off) and cuBLAS against the CPU's.  Loss
+# terms relative.  Gradients, relative L2 per leaf: the audio encoder's
+# train-mode batch norms amplify fp32 rounding in the backward (on the
+# CPU, fp32 against float64 differs by up to 2e-3 there), so 2e-2 there
+# and 1e-3 elsewhere; a leaf whose gradient differs by under 1e-5 in L2
+# (a conv bias before a batch norm: zero true gradient) is noise on both.
+TRAIN_METRIC_RTOL, TRAIN_GRAD_REL, TRAIN_AUDIO_GRAD_REL = 1e-4, 1e-3, 2e-2
+TRAIN_GRAD_FLOOR = 1e-5
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TRAIN_STEPS = (False, True, True, True, True)   # gan_on of each step
 
 N_WORDS, N_SPEAKERS = 64, 8
 CLIP_SECONDS = 20.0
@@ -165,10 +198,149 @@ def _b1_times(T, B, H, dtype):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _profile(name, fn, e2e_ms):
-    """One request under torch.profiler: the device time of every kernel
-    in it, B1's among them, and the device's idle share of the request's
-    unprofiled median wall time."""
+def _rel(got, want) -> float:
+    """Relative L2 error of got against want (float64)."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _b1_grad_check():
+    """B1's autograd (kernel forward, PyTorch-ops backward) against
+    autograd through its plain version, at the train step's shapes."""
+    from ha2g_torch.ops.gru_kernel import (gru_recurrence_fn,
+                                           gru_recurrence_plain)
+    worst = {}
+    for H in (300, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _b1_inputs(34, 96, H, dtype, seed=H)
+            ct = torch.randn((34, 2, 96, H), device="cuda", dtype=dtype)
+            grads = []
+            for fn in (gru_recurrence_fn, gru_recurrence_plain):
+                leaves = [a.detach().clone().requires_grad_() for a in args]
+                (fn(*leaves).float() * ct.float()).sum().backward()
+                grads.append([t.grad for t in leaves])
+            torch.cuda.synchronize()
+            errs = [_rel(g, w) for g, w in zip(*grads)]
+            ok = all(np.isfinite(errs)) and max(errs) <= B1_GRAD_REL[dtype]
+            _line("b1-grad-check", T=34, B=96, H=H, dtype=str(dtype)[6:],
+                  rel_err_xp_h0_whh_bhh="/".join(f"{e:.2e}" for e in errs),
+                  tol=f"{B1_GRAD_REL[dtype]:.0e}", ok=ok)
+            if not ok:
+                raise AssertionError(f"B1 gradient disagrees with autograd "
+                                     f"through its plain version, H={H} "
+                                     f"{dtype}")
+            worst[(H, dtype)] = max(errs)
+    return worst
+
+
+def _b1_backward_ms(T=34, B=96, H=300, dtype=torch.bfloat16) -> float:
+    """One call of B1's PyTorch-ops backward at the train shape."""
+    from ha2g_torch.ops.gru_kernel import (gru_recurrence,
+                                           gru_recurrence_backward)
+    args = _b1_inputs(T, B, H, dtype, seed=2)
+    outs = gru_recurrence(*args)
+    d_outs = torch.randn_like(outs)
+    ms = _event_ms(lambda: gru_recurrence_backward(*args, outs, d_outs),
+                   inner=5)
+    _line("b1-backward-time", T=T, B=B, H=H, dtype=str(dtype)[6:],
+          ms=f"{ms:.4f}", note="PyTorch ops, not a kernel")
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# B2-B4: the flash contrastive loss
+# ---------------------------------------------------------------------------
+
+def _b234_inputs(N, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a, b = (torch.nn.functional.normalize(torch.randn((N, D), generator=g),
+                                          dim=1) for _ in range(2))
+    return a.cuda().contiguous(), b.cuda().contiguous()
+
+
+def _b234_check():
+    from ha2g_torch.ops import contrastive as C
+    errs = {}
+    for N, D in ((3264, 32), (8704, 32), (1000, 32), (1000, 128)):
+        a, b = _b234_inputs(N, D, seed=N + D)
+        logz, diag = C.contrastive_fwd(a, b)
+        p_logz, p_diag = C.contrastive_fwd_plain(a, b)
+        g = torch.full((1,), 0.7 / N, device="cuda")
+        da = C.contrastive_bwd_da(a, b, logz, g)
+        db = C.contrastive_bwd_db(a, b, logz, g)
+        p_da = C.contrastive_bwd_da_plain(a, b, logz, g[0])
+        p_db = C.contrastive_bwd_db_plain(a, b, logz, g[0])
+        torch.cuda.synchronize()
+        e_fwd = max(((logz - p_logz).abs() / p_logz.abs()).max().item(),
+                    ((diag - p_diag).abs() / p_diag.abs()).max().item())
+        e_da = ((da - p_da).abs().max() / p_da.abs().max()).item()
+        e_db = ((db - p_db).abs().max() / p_db.abs().max()).item()
+        ok = (all(torch.isfinite(t).all().item() for t in (logz, diag, da, db))
+              and e_fwd <= B234_LOGZ_RTOL and max(e_da, e_db) <= B234_GRAD_REL)
+        _line("b234-check", N=N, D=D, ragged=N % 64 != 0,
+              b2_rel_err=f"{e_fwd:.2e}", b3_rel_err=f"{e_da:.2e}",
+              b4_rel_err=f"{e_db:.2e}",
+              tol=f"{B234_LOGZ_RTOL:.0e}/{B234_GRAD_REL:.0e}", ok=ok)
+        if not ok:
+            raise AssertionError(f"B2-B4 disagree with their plain versions "
+                                 f"at N={N} D={D}")
+        errs[(N, D)] = {
+            "b2": max((logz - p_logz).abs().max().item(),
+                      (diag - p_diag).abs().max().item()),
+            "b3": (da - p_da).abs().max().item(),
+            "b4": (db - p_db).abs().max().item()}
+    return errs
+
+
+def _b234_times(N, D=32):
+    """ms of B2, B3, B4 and of their plain versions, with each one's bound:
+    bytes = one read of every input and one write of every output;
+    operations ~ (2D + 12) per pair (i, j) for B2 (the product, clamps,
+    sqrt, reciprocal, exp) and ~ (4D + 16) for B3 and B4 (the product
+    again, ds, and ds times the other operand)."""
+    from ha2g_torch.ops import contrastive as C
+    a, b = _b234_inputs(N, D, seed=5)
+    logz, _ = C.contrastive_fwd(a, b)
+    g = torch.full((1,), 1.0 / N, device="cuda")
+    runs = {
+        "b2": (lambda: C.contrastive_fwd(a, b),
+               lambda: C.contrastive_fwd_plain(a, b),
+               (2 * N * D + 2 * N) * 4, (2 * D + 12) * N * N),
+        "b3": (lambda: C.contrastive_bwd_da(a, b, logz, g),
+               lambda: C.contrastive_bwd_da_plain(a, b, logz, g[0]),
+               (3 * N * D + N + 1) * 4, (4 * D + 16) * N * N),
+        "b4": (lambda: C.contrastive_bwd_db(a, b, logz, g),
+               lambda: C.contrastive_bwd_db_plain(a, b, logz, g[0]),
+               (3 * N * D + N + 1) * 4, (4 * D + 16) * N * N),
+    }
+    out = {}
+    for k, (fn, plain, n_bytes, flops) in runs.items():
+        ms = _event_ms(fn, inner=10)
+        plain_ms = _event_ms(plain, inner=2)
+        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        _line(f"{k}-time", N=N, D=D, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, bytes=n_bytes,
+              flops=flops, library_ms="none",
+              library_note="no single PyTorch call computes this loss")
+        out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+    return out
+
+
+# kernel name patterns in the profiler's device events
+KERNEL_PATTERNS = {"b1": "gru_recurrence_kernel",
+                   "b2": "contrastive_fwd_kernel",
+                   "b3": "contrastive_bwd_kernel<false>",
+                   "b4": "contrastive_bwd_kernel<true>"}
+
+
+def _profile(name, fn, e2e_ms, kernels=("b1",)):
+    """One call under torch.profiler: the device time of every kernel in
+    it, the port's kernels among them, and the device's idle share of the
+    call's unprofiled median wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -177,7 +349,9 @@ def _profile(name, fn, e2e_ms):
         torch.cuda.synchronize()
     per_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # user annotations (e.g. the optimiser's step range) span kernels
+        # that are counted on their own
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     if not per_name:
@@ -185,14 +359,17 @@ def _profile(name, fn, e2e_ms):
               reason="the profiler recorded no device events")
         return
     busy = sum(ms for ms, _ in per_name.values())
-    b1_ms, b1_n = (sum(v[i] for k, v in per_name.items()
-                       if "gru_recurrence_kernel" in k) for i in (0, 1))
+    fields = {}
+    for k in kernels:
+        ms, n = (sum(v[i] for key, v in per_name.items()
+                     if KERNEL_PATTERNS[k] in key) for i in (0, 1))
+        fields[f"{k}_device_ms"] = f"{ms:.2f}"
+        fields[f"{k}_kernels"] = n
     _line("profile", request=name, e2e_ms=f"{e2e_ms:.2f}",
           device_busy_ms=f"{busy:.2f}",
           idle_share=f"{1 - busy / e2e_ms:.3f}",
-          device_ops=sum(n for _, n in per_name.values()),
-          b1_device_ms=f"{b1_ms:.2f}", b1_kernels=b1_n)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+          device_ops=sum(n for _, n in per_name.values()), **fields)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     for k, (ms, n) in top:
         _line("profile-top", request=name, ms=f"{ms:.2f}", count=n,
               kernel=k[:90].replace(" ", "_"))
@@ -325,6 +502,174 @@ def _slice():
     return main_path_launches, W * per_window, e2e
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    T = cfg.n_poses
+    return {"text": rng.integers(0, N_WORDS, (B, T)),
+            "spec": rng.normal(size=(B, 128, 70)).astype(np.float32),
+            "target": (rng.normal(size=(B, T, cfg.skeleton.pose_dim)) * 0.2)
+            .astype(np.float32),
+            "vids": rng.integers(0, N_SPEAKERS, (B,))}
+
+
+def _counters():
+    """The launch counts of every kernel of the train step, and the calls
+    of B1's PyTorch-ops backward."""
+    from ha2g_torch.ops import contrastive as C
+    from ha2g_torch.ops import gru_kernel as G
+    return {"b1": G.gru_recurrence, "b1_backward": G.gru_recurrence_backward,
+            "b2": C.contrastive_fwd, "b3": C.contrastive_bwd_da,
+            "b4": C.contrastive_bwd_db}
+
+
+def _reset_counts():
+    for k, fn in _counters().items():
+        setattr(fn, "calls" if k == "b1_backward" else "launches", 0)
+
+
+def _read_counts():
+    return {k: getattr(fn, "calls" if k == "b1_backward" else "launches")
+            for k, fn in _counters().items()}
+
+
+def _expected_counts(cfg, gan_on):
+    """Per step: B1 forward once a GRU layer a cascade (the G cascade, the
+    diversity cascade, the D phase's fake cascade) and once a D layer a D
+    call (D(out) always; D(real), D(fake) in the D phase); its backward
+    for the G cascade, D(out) with the GAN term, and both D-phase calls;
+    B2 once and B3, B4 once each for the +/- contrastive terms."""
+    cascade = cfg.skeleton.n_levels * cfg.n_layers
+    d_layers = 4
+    if gan_on:
+        fwd = 3 * cascade + 3 * d_layers
+        bwd = cascade + 3 * d_layers
+    else:
+        fwd = 2 * cascade + d_layers
+        bwd = cascade
+    return {"b1": fwd, "b1_backward": bwd, "b2": 2, "b3": 2, "b4": 2}
+
+
+def _train():
+    """Train steps of the full-width TED Expressive hierarchy with its own
+    configuration file: launch counts, finite losses, times, memory and a
+    profile.  Returns the kernels' launch counts over the steps."""
+    from ha2g_torch.config import Config
+    from ha2g_torch.train.hierarchy import HierarchySystem
+
+    cfg = Config.from_yaml(ROOT / "configs_expressive" / "hierarchy.yaml")
+    B = cfg.batch_size
+    t0 = time.perf_counter()
+    system = HierarchySystem(cfg, N_WORDS, N_SPEAKERS,
+                             generator=torch.Generator().manual_seed(0))
+    _line("train-build", seconds=f"{time.perf_counter() - t0:.1f}",
+          params=sum(p.numel() for p in system.parameters()), batch=B,
+          compute_dtype=cfg.compute_dtype, levels=cfg.skeleton.n_levels,
+          hidden=cfg.hidden_size, gru_layers=cfg.n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [_train_batch(cfg, B, 100 + i) for i in range(len(TRAIN_STEPS))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals = dict.fromkeys(_read_counts(), 0)
+    step_ms = []
+    _reset_counts()
+    for i, (gan_on, batch) in enumerate(zip(TRAIN_STEPS, batches)):
+        before = _read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = system.train_step(batch, gan_on, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = {k: v - before[k] for k, v in _read_counts().items()}
+        want = _expected_counts(cfg, gan_on)
+        values = {k: float(v) for k, v in metrics.items()}
+        finite = all(np.isfinite(v) for v in values.values())
+        ok = finite and counts == want
+        _line("train-step", step=i, gan_on=gan_on, ms=f"{ms:.1f}",
+              finite=finite, **{k: f"{v:.4f}" for k, v in values.items()})
+        _line("train-launches", step=i,
+              **{k: f"{counts[k]}/{want[k]}" for k in want}, ok=ok)
+        if not ok:
+            raise AssertionError(f"train step {i} (gan_on={gan_on}) failed "
+                                 "its checks")
+        step_ms.append(ms)
+    main_path = _read_counts()
+    if main_path != {k: sum(_expected_counts(cfg, g)[k] for g in TRAIN_STEPS)
+                     for k in main_path}:
+        raise AssertionError("kernel launches outside the counted steps")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gan_ms = statistics.median(step_ms[2:])
+    _line("train-e2e", warmup_step_ms=f"{step_ms[0]:.1f}",
+          gan_step_ms_median_of_3=f"{gan_ms:.1f}",
+          samples_per_s=f"{B / gan_ms * 1e3:.1f}",
+          peak_memory_gib=f"{peak:.2f}")
+    _profile("train_gan_step", lambda: system.train_step(
+        _train_batch(cfg, B, 200), True, gen), gan_ms,
+        kernels=("b1", "b2", "b3", "b4"))
+    del system
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def _train_card_vs_cpu():
+    """The fp32 train step (GAN phase on) of a narrow 6-level hierarchy on
+    the card against the same port on the CPU: the same weights, batch,
+    speaker-z noise (a CPU generator of one seed on both sides) and speaker
+    permutation, dropout 0; every loss term and every gradient."""
+    from ha2g_torch.config import Config
+    from ha2g_torch.train.hierarchy import HierarchySystem
+
+    cfg = Config.from_yaml(ROOT / "configs_expressive" / "hierarchy.yaml",
+                           compute_dtype="float32", hidden_size=64,
+                           n_layers=2, dropout_prob=0.0)
+    systems = []
+    for device in ("cpu", "cuda"):
+        s = HierarchySystem(cfg, N_WORDS, N_SPEAKERS, device=device,
+                            generator=torch.Generator().manual_seed(3))
+        s.text.emb_dropout = 0.0
+        for g in s.gens:
+            g.text_encoder.emb_dropout = 0.0
+        s.dis.gru.dropout = 0.0
+        systems.append(s)
+    cpu, gpu = systems
+    gpu.load_state_dict(cpu.state_dict())
+    batch = _train_batch(cfg, 8, 7)
+    rand_vids = torch.from_numpy(np.roll(batch["vids"], 1))
+    got = [s.train_step(batch, True, torch.Generator().manual_seed(4),
+                        rand_vids=rand_vids) for s in (cpu, gpu)]
+    worst_metric = max(abs(float(got[1][k]) / float(got[0][k]) - 1)
+                       for k in got[0])
+    worst = {"audio": 0.0, "other": 0.0}
+    gpu_params = dict(gpu.named_parameters())
+    for key, p in cpu.named_parameters():
+        want, have = p.grad, gpu_params[key].grad
+        if want is None or have is None:
+            if (want is None) != (have is None):
+                raise AssertionError(f"{key}: gradient on one side only")
+            continue
+        if (have.cpu().double() - want.double()).norm() <= TRAIN_GRAD_FLOOR:
+            continue
+        group = "audio" if key.startswith("audio.") else "other"
+        worst[group] = max(worst[group], _rel(have.cpu(), want))
+    ok = (got[0].keys() == got[1].keys()
+          and worst_metric <= TRAIN_METRIC_RTOL
+          and worst["audio"] <= TRAIN_AUDIO_GRAD_REL
+          and worst["other"] <= TRAIN_GRAD_REL)
+    _line("train-fp32-card-vs-cpu", levels=cfg.skeleton.n_levels, hidden=64,
+          gru_layers=2, batch=8, metrics=len(got[0]),
+          metric_rel_err=f"{worst_metric:.2e}",
+          grad_rel_err_audio=f"{worst['audio']:.2e}",
+          grad_rel_err_other=f"{worst['other']:.2e}",
+          tol=f"{TRAIN_METRIC_RTOL:.0e}/{TRAIN_AUDIO_GRAD_REL:.0e}/"
+              f"{TRAIN_GRAD_REL:.0e}", ok=ok)
+    if not ok:
+        raise AssertionError("the fp32 train step on the card disagrees with "
+                             "the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -336,7 +681,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from ha2g_torch import kernels
-    from ha2g_torch.ops import gru_kernel
+    from ha2g_torch.ops import contrastive, gru_kernel
 
     # phase 1: device and build
     smi = _smi()
@@ -347,7 +692,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    logs = kernels.build([gru_kernel.SOURCE])
+    logs = kernels.build([gru_kernel.SOURCE, contrastive.SOURCE])
     _line("build", seconds=f"{time.perf_counter() - t0:.1f}",
           sources=[str(s.relative_to(ROOT)) for s in logs] or "cached")
     for log in logs.values():
@@ -357,11 +702,21 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     errs = _b1_check()
+    _b1_grad_check()
+    b234_errs = _b234_check()
 
     # phase 3: the serving path
-    launches, per_request, e2e = _slice()
+    _reset_counts()
+    serving_b1, per_request, e2e = _slice()
+    serving = {**_read_counts(), "b1": serving_b1}
+    if serving["b2"] or serving["b3"] or serving["b4"]:
+        raise AssertionError("contrastive kernels launched while serving")
 
-    # phase 4: kernel times at the serving shapes (bf16 is the serving type)
+    # phase 4: the training path
+    training = _train()
+    _train_card_vs_cpu()
+
+    # phase 5: kernel times at the serving and train shapes
     times = {}
     for B in (1, 8, 16):
         for dtype in (torch.bfloat16, torch.float32):
@@ -373,16 +728,37 @@ def main() -> int:
         _line("e2e-b1-share", request=name, e2e_ms=f"{ms:.2f}",
               b1_launches=per_request, b1_ms=f"{b1_ms:.2f}",
               share=f"{b1_ms / ms:.3f}")
+    _b1_times(34, 96, 300, torch.bfloat16)      # the train step's shape
+    _b1_backward_ms()
+    b234 = {N: _b234_times(N) for N in (3264, 8704)}
+
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
+    by_path = lambda k: {"serving": serving[k], "training": training[k]}
+    entries = [{
         "name": "gru_recurrence", "route": "cuda",
         "source": "ha2g_torch/csrc/gru_recurrence.cu",
         "replaces": "ha2g_tpu/ops/pallas_gru.py:48",
-        "launches": launches,
+        "launches": serving["b1"] + training["b1"],
+        "launches_by_path": by_path("b1"),
         "max_abs_err": errs[(34, 8, 300, torch.bfloat16)],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}]}), flush=True)
+        "library_ms": main["library_ms"]}]
+    for k, name, line in (("b2", "contrastive_fwd", 51),
+                          ("b3", "contrastive_bwd_da", 97),
+                          ("b4", "contrastive_bwd_db", 115)):
+        t = b234[3264][k]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ha2g_torch/csrc/contrastive.cu",
+            "replaces": f"ha2g_tpu/ops/pallas_contrastive.py:{line}",
+            "launches": serving[k] + training[k],
+            "launches_by_path": by_path(k),
+            "max_abs_err": b234_errs[(3264, 32)][k],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,10 @@
 
 Input: the JAX ``HierarchySystem``'s ``params`` / ``batch_stats`` as nested
 dicts of numpy arrays (flax module names as keys).  Output: a state dict
-with the reference's torch key names (the layout of its ``gen_dict_*`` and
-``audio_dict``), which the port's modules use.  Every conversion is a
-layout change only:
+with the reference's torch key names (the layout of its ``gen_dict_*``,
+``audio_dict``, ``text_dict`` and ``dis_dict``), which the port's modules
+use.  Every conversion is a layout change only (so a tree of JAX
+*gradients* converts to the port's ``.grad`` layout as well):
 
 * Dense kernels (in, out) -> Linear weights (out, in);
 * conv kernels (k.., in, out) -> (out, in, k..);
@@ -136,14 +137,34 @@ def audio_encoder_state(params: dict, stats: dict, layers=(3, 4, 6, 3),
     return sd
 
 
+def discriminator_state(params: dict, stats: dict) -> dict[str, Any]:
+    """ConvDiscriminator params + batch stats -> reference dis_dict keys
+    (hierarchy_net.py:197-242)."""
+    sd: dict[str, Any] = {}
+    _conv(params["Conv1d_0"]["Conv_0"], sd, "pre_conv.0")
+    _bn(params["BatchNorm_0"], stats["BatchNorm_0"], sd, "pre_conv.1")
+    _conv(params["Conv1d_1"]["Conv_0"], sd, "pre_conv.3")
+    _bn(params["BatchNorm_1"], stats["BatchNorm_1"], sd, "pre_conv.4")
+    _conv(params["Conv1d_2"]["Conv_0"], sd, "pre_conv.6")
+    _gru(params["GRU_0"], sd, "gru", 4)
+    _dense(params["Dense_0"], sd, "out")
+    _dense(params["Dense_1"], sd, "out2")
+    return sd
+
+
 def hierarchy_state(params: dict, batch_stats: dict,
                     n_layers: int) -> dict[str, Any]:
     """The JAX HierarchySystem's params/batch_stats -> the port's
-    HierarchySystem state dict (``audio.*`` and ``gens.{l}.*``)."""
+    HierarchySystem state dict (``audio.*``, ``gens.{l}.*``, the standalone
+    text encoder ``text.*`` and the discriminator ``dis.*``)."""
     sd = {f"audio.{k}": v for k, v in audio_encoder_state(
         params["audio"], batch_stats["audio"],
         prefix="feat_extractor.").items()}
     for level, gen in enumerate(params["gens"]):
         sd.update({f"gens.{level}.{k}": v
                    for k, v in generator_state(gen, n_layers).items()})
+    sd.update({f"text.{k}": v for k, v in
+               text_encoder_state(params["text"], n_layers).items()})
+    sd.update({f"dis.{k}": v for k, v in discriminator_state(
+        params["dis"], batch_stats["dis"]).items()})
     return sd

@@ -47,17 +47,45 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode batch norm over axis 1 (any rank), normalising in float32
-    with the running statistics and casting back to the compute dtype.
-    Batch-statistics (training) mode is not ported yet and raises."""
+    """Batch norm over axis 1 (any rank), normalising in float32 and casting
+    back to the compute dtype, eps 1e-5.
+
+    Eval mode uses the running statistics.  Training mode is the JAX
+    package's flax BatchNorm (momentum 0.9, torch's 0.1): statistics over
+    the whole batch, and the running variance updated with the *biased*
+    batch variance that also normalises (torch's own update would take the
+    unbiased one), so the running statistics are updated here by hand.
+    """
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
-        if self.training:
-            raise NotImplementedError("training-mode batch norm is not "
-                                      "ported; call .eval()")
-        out = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                           self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        if not self.training:
+            out = F.batch_norm(xf, self.running_mean, self.running_var,
+                               self.weight, self.bias, False, 0.0, self.eps)
+            return out.to(dtype)
+        out = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            dims = [0, *range(2, xf.dim())]
+            var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
         return out.to(dtype)
+
+
+def dropout(x, p: float, training: bool, generator: torch.Generator | None):
+    """flax-style inverted dropout whose keep mask (probability 1 - p) is
+    drawn from ``generator`` on its own device and moved to x's, so a CPU
+    generator gives the same mask whatever device the model runs on.
+    A no-op unless training with p > 0; then a generator is required."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = torch.rand(tuple(x.shape), generator=generator,
+                      device=generator.device) >= p
+    return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
 
 
 def leaky_relu(x, slope: float):

@@ -1,6 +1,6 @@
-"""Hierarchical pose inferer: audio encoder wrapper and one level's generator
-cell (reference hierarchy_net.py:10-149), with the reference's parameter
-names.  The discriminators belong to training and are not here.
+"""Hierarchical pose inferer: audio encoder wrapper, one level's generator
+cell and the conv discriminator (reference hierarchy_net.py:10-242), with
+the reference's parameter names.
 """
 
 from __future__ import annotations
@@ -8,7 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ha2g_torch.models.common import Linear, leaky_relu, reparameterize
+from ha2g_torch.models.common import (BatchNorm, Conv1d, Linear, leaky_relu,
+                                      reparameterize)
 from ha2g_torch.models.resnet_se import ResNetSE
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.ops.gru import GRU
@@ -46,7 +47,7 @@ class HierarchicalPoseGenerator(nn.Module):
                  word_embed_dim: int = 300, hidden_size: int = 300,
                  n_layers: int = 4, dropout: float = 0.3,
                  emb_dropout: float = 0.1, z_type: str = "speaker",
-                 input_context: str = "both"):
+                 input_context: str = "both", freeze_wordembed: bool = False):
         super().__init__()
         if z_type not in ("speaker", "random", "none"):
             raise ValueError(f"unknown z_type {z_type!r}")
@@ -57,7 +58,8 @@ class HierarchicalPoseGenerator(nn.Module):
         self.input_context = input_context
         self.text_encoder = TextEncoderTCN(
             n_words, embed_dim=word_embed_dim, hidden_size=hidden_size,
-            n_layers=n_layers, dropout=dropout, emb_dropout=emb_dropout)
+            n_layers=n_layers, dropout=dropout, emb_dropout=emb_dropout,
+            freeze=freeze_wordembed)
         if z_type == "speaker":
             self.speaker_embedding = nn.ModuleList(
                 [nn.Embedding(n_speakers, Z_SIZE), Linear(Z_SIZE, Z_SIZE)])
@@ -96,9 +98,9 @@ class HierarchicalPoseGenerator(nn.Module):
                 generator: torch.Generator | None = None):
         """pre_seq (B, T, pose_dim+1), in_text (B, T) tokens, audio_feat_seq
         (B, T, 32), vid_indices (B,) -> (out (B, T, pose_dim), z, mu, logvar).
-        ``generator`` supplies the speaker-z noise."""
+        ``generator`` supplies the speaker-z noise and the dropout masks."""
         B, T, _ = pre_seq.shape
-        text_feat = self.text_encoder(in_text, dtype)
+        text_feat = self.text_encoder(in_text, dtype, generator)
         z, mu, logvar = self.speaker_z(vid_indices, B, dtype, generator)
         parts = [pre_seq]
         if self.input_context in ("both", "audio"):
@@ -108,8 +110,42 @@ class HierarchicalPoseGenerator(nn.Module):
         if z is not None:
             parts.append(z[:, None, :].expand(B, T, z.shape[-1]))
         in_data = torch.cat([p.to(dtype) for p in parts], dim=2)
-        out, _ = self.gru(in_data, dtype)
+        out, _ = self.gru(in_data, dtype, generator)
         H = self.hidden_size
         out = out[..., :H] + out[..., H:]
         out = leaky_relu(self.out[0](out, dtype), 0.01)
         return self.out[2](out, dtype), z, mu, logvar
+
+
+class ConvDiscriminator(nn.Module):
+    """Conv stack -> 4-layer bi-GRU(64) -> per-step Linear(1) ->
+    Linear(T-6, 1) -> sigmoid (hierarchy_net.py:197-242; the reference
+    hard-codes Linear(28, 1) for 34 frames).  ``pre_conv`` keeps the
+    reference's Sequential indices: convs at 0, 3, 6, batch norms at 1, 4,
+    LeakyReLU(``slope``) at 2, 5.  (B, T, pose_dim) -> (B, 1)."""
+
+    def __init__(self, input_size: int, n_poses: int, hidden_size: int = 64,
+                 slope: float = 0.01, dropout: float = 0.3):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.slope = slope
+        self.pre_conv = nn.ModuleList([
+            Conv1d(input_size, 16, 3), BatchNorm(16), nn.LeakyReLU(slope),
+            Conv1d(16, 8, 3), BatchNorm(8), nn.LeakyReLU(slope),
+            Conv1d(8, 8, 3)])
+        self.gru = GRU(8, hidden_size, 4, dropout=dropout)
+        self.out = Linear(hidden_size, 1)
+        self.out2 = Linear(n_poses - 6, 1)
+
+    def forward(self, poses, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None):
+        pc = self.pre_conv
+        x = poses.transpose(1, 2)                        # (B, C, T)
+        x = leaky_relu(pc[1](pc[0](x, dtype), dtype), self.slope)
+        x = leaky_relu(pc[4](pc[3](x, dtype), dtype), self.slope)
+        x = pc[6](x, dtype).transpose(1, 2)              # (B, T-6, 8)
+        out, _ = self.gru(x, dtype, generator)
+        H = self.hidden_size
+        out = out[..., :H] + out[..., H:]
+        out = self.out(out, dtype)[..., 0]               # (B, T-6)
+        return torch.sigmoid(self.out2(out, dtype))

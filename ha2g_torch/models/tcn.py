@@ -5,6 +5,7 @@ Causality is a left pad of (k-1)*dilation per dilated conv (the reference
 pads both sides and chomps the right: the same outputs).  Weight norm is
 explicit, ``weight = g * v / ||v||`` with the norm over (in, k) per output
 channel, and keeps torch's ``weight_v`` / ``weight_g`` parameter names.
+Dropout masks come from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ha2g_torch.models.common import Conv1d, Linear
+from ha2g_torch.models.common import Conv1d, Linear, dropout
 
 
 class WeightNormConv1d(nn.Module):
@@ -47,9 +48,11 @@ class TemporalBlock(nn.Module):
         self.conv2 = WeightNormConv1d(out_ch, out_ch, kernel_size, dilation)
         self.downsample = Conv1d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x, dtype: torch.dtype = torch.float32):
-        y = F.dropout(F.relu(self.conv1(x, dtype)), self.dropout, self.training)
-        y = F.dropout(F.relu(self.conv2(y, dtype)), self.dropout, self.training)
+    def forward(self, x, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None):
+        p, train = self.dropout, self.training
+        y = dropout(F.relu(self.conv1(x, dtype)), p, train, generator)
+        y = dropout(F.relu(self.conv2(y, dtype)), p, train, generator)
         # an identity residual keeps its dtype and the sum promotes, as in
         # the JAX package
         res = x if self.downsample is None else self.downsample(x, dtype)
@@ -67,28 +70,37 @@ class TemporalConvNet(nn.Module):
                           kernel_size, 2 ** i, dropout)
             for i, ch in enumerate(channels))
 
-    def forward(self, x, dtype: torch.dtype = torch.float32):
+    def forward(self, x, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None):
         for block in self.network:
-            x = block(x, dtype)
+            x = block(x, dtype, generator)
         return x
 
 
 class TextEncoderTCN(nn.Module):
-    """Word tokens (B, T) -> embedding -> TCN -> Linear(32): (B, T, 32)."""
+    """Word tokens (B, T) -> embedding -> TCN -> Linear(32): (B, T, 32).
+
+    The embedding dropout stays at the reference's fixed 0.1 whatever
+    ``dropout`` is (hierarchy_net.py:25); ``freeze`` stops the table's
+    gradient (``freeze_wordembed``)."""
 
     def __init__(self, n_words: int, embed_dim: int = 300,
                  hidden_size: int = 300, n_layers: int = 4,
                  kernel_size: int = 2, dropout: float = 0.3,
-                 emb_dropout: float = 0.1):
+                 emb_dropout: float = 0.1, freeze: bool = False):
         super().__init__()
         self.emb_dropout = emb_dropout
+        self.freeze = freeze
         self.embedding = nn.Embedding(n_words, embed_dim)
         self.tcn = TemporalConvNet(embed_dim, [hidden_size] * n_layers,
                                    kernel_size, dropout)
         self.decoder = Linear(hidden_size, 32)
         self.decoder.init = "normal_0.01"  # hierarchy_net.py:44-46
 
-    def forward(self, tokens, dtype: torch.dtype = torch.float32):
-        emb = F.dropout(self.embedding(tokens), self.emb_dropout, self.training)
-        y = self.tcn(emb.transpose(1, 2), dtype)
+    def forward(self, tokens, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None):
+        table = self.embedding.weight
+        emb = F.embedding(tokens, table.detach() if self.freeze else table)
+        emb = dropout(emb, self.emb_dropout, self.training, generator)
+        y = self.tcn(emb.transpose(1, 2), dtype, generator)
         return self.decoder(y.transpose(1, 2), dtype)

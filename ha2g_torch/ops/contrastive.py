@@ -1,0 +1,197 @@
+"""Kernels B2-B4: the flash softmax-contrastive loss.
+
+``flash_contrastive(a, b)`` is the contrastive cross-entropy over
+inverse-L2 logits of L2-normalised rows a, b (N, D) float32 with diagonal
+labels, ha2g_tpu/train/losses.py::_contrastive_core with its hand backward.
+On CUDA tensors it runs the hand-written kernels of
+``csrc/contrastive.cu`` (replacing ha2g_tpu/ops/pallas_contrastive.py):
+
+* B2 ``contrastive_fwd``: logz = logsumexp_j logit_ij and diag = logit_ii,
+  (N,) each; the loss is mean(logz - diag), taken here in torch as JAX takes
+  it outside its kernel;
+* B3 ``contrastive_bwd_da``: dA = ds . b;  B4 ``contrastive_bwd_db``:
+  dB = ds^T . a, with ds recomputed tile by tile from a, b, logz and g/N.
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
+version (``*_plain``), which materialises the (N, N) logits, and counts
+nothing.  A CUDA tensor reaches the kernel or raises.  Every N is served
+(the kernels mask the ragged edge); D is at most ``MAX_DIM``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ha2g_torch import kernels
+
+SOURCE = kernels.CSRC / "contrastive.cu"
+MAX_DIM = 512
+EPS = 1e-8
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ha2g_contrastive_fwd.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    for name in ("ha2g_contrastive_bwd_da", "ha2g_contrastive_bwd_db"):
+        getattr(lib, name).argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+    for name in ("ha2g_contrastive_fwd", "ha2g_contrastive_bwd_da",
+                 "ha2g_contrastive_bwd_db"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _on_card(name: str, *tensors) -> bool:
+    """False for all-CPU tensors (plain version); True for contiguous
+    float32 tensors on one CUDA device (kernel); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device or "
+                         f"all on the CPU, got {devices}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{name} takes float32 tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return True
+
+
+def _check(a, b) -> tuple[int, int]:
+    if a.dim() != 2 or a.shape != b.shape:
+        raise ValueError(f"a and b must both be (N, D), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    N, D = a.shape
+    if N == 0 or D == 0 or D > MAX_DIM:
+        raise ValueError(f"the contrastive kernels take 0 < D <= {MAX_DIM} "
+                         f"and N > 0, got N={N} D={D}")
+    return N, D
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain versions: losses.py::_contrastive_core / _contrastive_bwd in torch
+# ---------------------------------------------------------------------------
+
+def _logits(s):
+    """s = <a_i, b_j> -> (inverse-L2 logits, dist)."""
+    dist = torch.sqrt(torch.clamp(2.0 - 2.0 * s, min=0.0) + 1e-12)
+    return torch.clamp(1.0 / (dist + EPS), min=EPS), dist
+
+
+def contrastive_fwd_plain(a, b):
+    logits, _ = _logits(a @ b.T)
+    return torch.logsumexp(logits, dim=1), torch.diagonal(logits).clone()
+
+
+def _ds_plain(a, b, logz, g_over_n):
+    s = a @ b.T
+    logits, dist = _logits(s)
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    dlogits = (torch.exp(logits - logz[:, None]) - eye) * g_over_n
+    active = (logits > EPS) & (2.0 - 2.0 * s > 0.0)
+    return torch.where(active, dlogits / ((dist + EPS) ** 2 * dist), 0.0)
+
+
+def contrastive_bwd_da_plain(a, b, logz, g_over_n):
+    return _ds_plain(a, b, logz, g_over_n) @ b
+
+
+def contrastive_bwd_db_plain(a, b, logz, g_over_n):
+    return _ds_plain(a, b, logz, g_over_n).T @ a
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def contrastive_fwd(a, b):
+    """B2: (logz, diag), each (N,) float32."""
+    N, D = _check(a, b)
+    if not _on_card("contrastive_fwd", a, b):
+        return contrastive_fwd_plain(a, b)
+    logz = torch.empty(N, dtype=torch.float32, device=a.device)
+    diag = torch.empty_like(logz)
+    with torch.cuda.device(a.device):
+        err = _lib().ha2g_contrastive_fwd(a.data_ptr(), b.data_ptr(),
+                                          logz.data_ptr(), diag.data_ptr(),
+                                          N, D, _stream(a))
+    _raise_on(err, "contrastive_fwd")
+    contrastive_fwd.launches += 1
+    return logz, diag
+
+
+def _bwd(wrapper, a, b, logz, g_over_n, plain):
+    name = wrapper.__name__
+    N, D = _check(a, b)
+    if tuple(logz.shape) != (N,) or g_over_n.numel() != 1:
+        raise ValueError(f"{name}: logz must be ({N},) and g_over_n one "
+                         f"value, got {tuple(logz.shape)} and "
+                         f"{tuple(g_over_n.shape)}")
+    if not _on_card(name, a, b, logz, g_over_n):
+        return plain(a, b, logz, g_over_n.reshape(()))
+    out = torch.empty((N, D), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = getattr(_lib(), f"ha2g_{name}")(
+            a.data_ptr(), b.data_ptr(), logz.data_ptr(), g_over_n.data_ptr(),
+            out.data_ptr(), N, D, _stream(a))
+    _raise_on(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def contrastive_bwd_da(a, b, logz, g_over_n):
+    """B3: dA (N, D); ``g_over_n`` is the loss's cotangent over the global
+    N, one float32 value on the tensors' device."""
+    return _bwd(contrastive_bwd_da, a, b, logz, g_over_n,
+                contrastive_bwd_da_plain)
+
+
+def contrastive_bwd_db(a, b, logz, g_over_n):
+    """B4: dB (N, D); arguments as for B3."""
+    return _bwd(contrastive_bwd_db, a, b, logz, g_over_n,
+                contrastive_bwd_db_plain)
+
+
+contrastive_fwd.launches = 0
+contrastive_bwd_da.launches = 0
+contrastive_bwd_db.launches = 0
+
+
+class _FlashContrastive(torch.autograd.Function):
+    """Forward B2 then mean(logz - diag); backward B3 then B4."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        logz, diag = contrastive_fwd(a, b)
+        ctx.save_for_backward(a, b, logz)
+        return (logz - diag).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, logz = ctx.saved_tensors
+        g_over_n = (g.float() / a.shape[0]).reshape(1).contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = contrastive_bwd_da(a, b, logz, g_over_n)
+        if ctx.needs_input_grad[1]:
+            db = contrastive_bwd_db(a, b, logz, g_over_n)
+        return da, db
+
+
+def flash_contrastive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Contrastive CE over inverse-L2 logits of unit rows a, b (N, D)."""
+    return _FlashContrastive.apply(a, b)

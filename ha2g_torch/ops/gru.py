@@ -10,16 +10,19 @@ twins), so the reference's state dicts load directly:
   one recurrence, kernel B1 (``ops/gru_kernel.py``);
 * outputs are re-reversed and concatenated [forward, backward];
 * the final hidden state is layer-major, direction-minor, as torch's;
-* dropout sits between layers (a no-op in eval mode).
+* dropout sits between layers (a no-op in eval mode), its masks drawn
+  from the caller's generator;
+* the recurrence is differentiable (``gru_recurrence_fn``): kernel B1
+  forward, a PyTorch-ops backward.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ha2g_torch.ops.gru_kernel import gru_recurrence
+from ha2g_torch.models.common import dropout
+from ha2g_torch.ops.gru_kernel import gru_recurrence_fn
 
 _SUFFIXES = ("", "_reverse")
 
@@ -52,7 +55,8 @@ class GRU(nn.Module):
             ps = [p.t() for p in ps]
         return torch.stack(ps).to(dtype).contiguous()
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None):
         B, T, _ = x.shape
         H = self.hidden_size
         inp = x.to(dtype)
@@ -65,10 +69,10 @@ class GRU(nn.Module):
             b_hh = self._stacked("bias_hh", layer, dtype, False)
             xp = torch.einsum("btd,ndg->tnbg", inp, w_ih) + b_ih[None, :, None]
             xp = torch.cat([xp[:, :1], xp[:, 1:].flip(0)], dim=1).contiguous()
-            outs = gru_recurrence(xp, h0, w_hh, b_hh)          # (T, 2, B, H)
+            outs = gru_recurrence_fn(xp, h0, w_hh, b_hh)       # (T, 2, B, H)
             finals.append(outs[-1])
             layer_out = torch.cat([outs[:, 0], outs[:, 1].flip(0)], dim=-1)
             inp = layer_out.transpose(0, 1)                     # (B, T, 2H)
             if layer < self.n_layers - 1:
-                inp = F.dropout(inp, self.dropout, self.training)
+                inp = dropout(inp, self.dropout, self.training, generator)
         return inp, torch.cat(finals, dim=0)

@@ -11,6 +11,12 @@ Layout (same as the TPU kernel): xp (T, 2, B, 3H) input projections with
 direction 1 already time-reversed, h0 (2, B, H), w_hh (2, H, 3H),
 b_hh (2, 3H) -> outputs (T, 2, B, H).  Gates are computed in float32; the
 carry is rounded to the input dtype (float32 or bfloat16) every step.
+
+``gru_recurrence_fn`` is the differentiable form: its forward is
+``gru_recurrence`` (the kernel on the card), its backward
+``gru_recurrence_backward``, PyTorch ops that copy the JAX package's hand
+VJP ``ha2g_tpu/ops/gru.py::_gru_scan_bwd`` (the JAX package has no Pallas
+backward to port).  ``gru_recurrence_backward.calls`` counts its calls.
 """
 
 from __future__ import annotations
@@ -103,3 +109,71 @@ def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
 
 
 gru_recurrence.launches = 0
+
+
+def gru_recurrence_backward(xp, h0, w_hh, b_hh, outs, d_outs):
+    """(d_xp, d_h0, d_w_hh, d_b_hh) of one layer's recurrence given the
+    forward's inputs, its outputs and their cotangent, all math in float32.
+
+    The kernel keeps no per-step hh = h_prev . w_hh + b_hh, so it is
+    recomputed for all T in one batched product from cat(h0, outs[:-1]), as
+    the JAX Pallas path recomputes it by re-running the scan
+    (ha2g_tpu/ops/pallas_gru.py:138-141).  The gate factors of every step
+    depend only on the forward, so they are formed for all T at once; the
+    reverse loop carries dh through one d_gh . w_hh^T product per step, and
+    d_w_hh / d_b_hh are single hoisted contractions over (T, B).
+    """
+    gru_recurrence_backward.calls += 1
+    T, H = xp.shape[0], h0.shape[-1]
+    w = w_hh.float()
+    h_prev = torch.cat([h0[None], outs[:-1]]).float()            # (T,2,B,H)
+    hh = torch.einsum("tdbh,dhg->tdbg", h_prev, w) \
+        + b_hh.float()[None, :, None]
+    x = xp.float()
+    r = torch.sigmoid(x[..., :H] + hh[..., :H])
+    z = torch.sigmoid(x[..., H:2 * H] + hh[..., H:2 * H])
+    h_n = hh[..., 2 * H:]
+    n = torch.tanh(x[..., 2 * H:] + r * h_n)
+    # h' = (1-z) n + z h_prev, n = tanh(x_n + r h_n): per unit of the
+    # incoming gradient g, d_pre_n = g f_n, d_pre_z = g f_z, d_pre_r = g f_r
+    f_n = (1.0 - z) * (1.0 - n * n)
+    f_z = (h_prev - n) * z * (1.0 - z)
+    f_r = f_n * h_n * r * (1.0 - r)
+    coef_gh = torch.cat([f_r, f_z, f_n * r], dim=-1)          # d_gh = g coef
+    w_t = w.transpose(1, 2)                                    # (2, 3H, H)
+    d_outs = d_outs.float()
+    g_seq = torch.empty_like(d_outs)
+    dh = torch.zeros_like(d_outs[0])
+    for t in range(T - 1, -1, -1):
+        g = dh + d_outs[t]
+        g_seq[t] = g
+        dh = g * z[t] + torch.bmm(g.repeat(1, 1, 3) * coef_gh[t], w_t)
+    g3 = g_seq.repeat(1, 1, 1, 3)
+    d_gh = g3 * coef_gh
+    d_xp = g3 * torch.cat([f_r, f_z, f_n], dim=-1)
+    d_w_hh = torch.einsum("tdbh,tdbg->dhg", h_prev, d_gh)
+    d_b_hh = d_gh.sum(dim=(0, 2))
+    return (d_xp.to(xp.dtype), dh.to(h0.dtype), d_w_hh.to(w_hh.dtype),
+            d_b_hh.to(b_hh.dtype))
+
+
+gru_recurrence_backward.calls = 0
+
+
+class _GRURecurrence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, h0, w_hh, b_hh):
+        outs = gru_recurrence(xp, h0, w_hh, b_hh)
+        ctx.save_for_backward(xp, h0, w_hh, b_hh, outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, d_outs):
+        grads = gru_recurrence_backward(*ctx.saved_tensors, d_outs)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def gru_recurrence_fn(xp, h0, w_hh, b_hh) -> torch.Tensor:
+    """``gru_recurrence`` with a gradient (see module doc)."""
+    return _GRURecurrence.apply(xp, h0, w_hh, b_hh)

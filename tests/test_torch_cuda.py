@@ -1,5 +1,7 @@
-"""Kernel B1 on the card against its plain version.  Marked ``cuda``: it
-skips on machines without an NVIDIA GPU, where a CUDA kernel cannot run.
+"""Kernels B1-B4 on the card against their plain versions, B1's autograd,
+and the wrappers' routing of CUDA tensors to the kernels.  Marked
+``cuda``: it skips on machines without an NVIDIA GPU, where a CUDA kernel
+cannot run.
 On a GPU machine without JAX:
 ``python -m pytest tests/test_torch_cuda.py --noconftest`` (the suite's
 conftest imports JAX)."""
@@ -7,7 +9,9 @@ conftest imports JAX)."""
 import pytest
 import torch
 
-from ha2g_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
+from ha2g_torch.ops import contrastive as C
+from ha2g_torch.ops.gru_kernel import (gru_recurrence, gru_recurrence_fn,
+                                       gru_recurrence_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,3 +53,66 @@ def test_kernel_rejects_non_contiguous(cuda):
     b = torch.zeros((2, 24), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         gru_recurrence(xp, h0, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_autograd_matches_plain_autograd(cuda, dtype):
+    """Kernel forward + PyTorch-ops backward against autograd through the
+    plain version (relative L2 per gradient; bf16: the plain graph rounds
+    every step's gradient to bf16)."""
+    g = torch.Generator().manual_seed(1)
+    T, B, H = 34, 6, 64
+    args = [torch.randn((T, 2, B, 3 * H), generator=g) * 0.5,
+            torch.randn((2, B, H), generator=g) * 0.5,
+            (torch.rand((2, H, 3 * H), generator=g) * 2 - 1) * H ** -0.5,
+            (torch.rand((2, 3 * H), generator=g) * 2 - 1) * H ** -0.5]
+    ct = torch.randn((T, 2, B, H), generator=g).to(cuda)
+    grads = []
+    for fn in (gru_recurrence_fn, gru_recurrence_plain):
+        leaves = [a.to(cuda, dtype).requires_grad_() for a in args]
+        (fn(*leaves).float() * ct).sum().backward()
+        grads.append([t.grad.double() for t in leaves])
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for got, want in zip(*grads):
+        assert ((got - want).norm() / want.norm()).item() <= tol
+
+
+@pytest.mark.parametrize("N,D", [(3264, 32), (1000, 32), (1000, 128),
+                                 (97, 40)])
+def test_contrastive_kernels_match_plain(cuda, N, D):
+    """B2-B4 on random unit rows, ragged N included: sums of N terms in
+    another order."""
+    g = torch.Generator().manual_seed(N)
+    a, b = (torch.nn.functional.normalize(torch.randn((N, D), generator=g),
+                                          dim=1).to(cuda) for _ in range(2))
+    counts = (C.contrastive_fwd.launches, C.contrastive_bwd_da.launches,
+              C.contrastive_bwd_db.launches)
+    logz, diag = C.contrastive_fwd(a, b)
+    p_logz, p_diag = C.contrastive_fwd_plain(a, b)
+    gn = torch.full((1,), 0.3 / N, device=cuda)
+    da, db = (fn(a, b, logz, gn) for fn in (C.contrastive_bwd_da,
+                                            C.contrastive_bwd_db))
+    torch.cuda.synchronize()
+    # CUDA tensors reached the three kernels, once each
+    assert (C.contrastive_fwd.launches, C.contrastive_bwd_da.launches,
+            C.contrastive_bwd_db.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(logz, p_logz, rtol=1e-5, atol=0)
+    torch.testing.assert_close(diag, p_diag, rtol=1e-5, atol=0)
+    for got, plain in ((da, C.contrastive_bwd_da_plain),
+                       (db, C.contrastive_bwd_db_plain)):
+        want = plain(a, b, logz, gn[0])
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_flash_contrastive_gradient_on_the_card(cuda):
+    g = torch.Generator().manual_seed(2)
+    feats = [torch.randn((272, 32), generator=g) for _ in range(2)]
+    grads = []
+    for device in ("cpu", cuda):
+        a, b = (f.to(device).detach().requires_grad_() for f in feats)
+        C.flash_contrastive(torch.nn.functional.normalize(a, dim=1),
+                            torch.nn.functional.normalize(b, dim=1)).backward()
+        grads.append([a.grad.cpu(), b.grad.cpu()])
+    # the kernels (card) against the plain versions (CPU): sums of N terms
+    for got, want in zip(grads[1], grads[0]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -4,7 +4,8 @@ The plain version runs against the Pallas kernel in interpret mode and the
 scan reference, as tests/test_pallas_gru.py runs them (T=7, B=4, H=16).
 The GRU module runs against the JAX GRU on its scan path
 (use_pallas=False), which is bit-exact with the kernel and compiles on the
-CPU.  On CPU tensors the wrapper takes the plain version and counts no
+CPU, forward and (through jax.grad and the port's autograd) backward.  On
+CPU tensors the wrapper takes the plain version and counts no
 kernel launch.
 """
 
@@ -18,10 +19,13 @@ from ha2g_tpu.ops.gru import GRU as JaxGRU
 from ha2g_tpu.ops.pallas_gru import _pallas_forward, gru_sequence_reference
 from ha2g_torch.convert import _gru
 from ha2g_torch.ops.gru import GRU
-from ha2g_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
+from ha2g_torch.ops.gru_kernel import (gru_recurrence,
+                                       gru_recurrence_backward,
+                                       gru_recurrence_plain)
 
 T, B, H = 7, 4, 16
-# fp32: summation order of the h.w_hh products only
+# fp32: summation order of the h.w_hh products (and, backward, of the
+# d_gh.w_hh^T and hoisted weight-gradient contractions) only
 ATOL_F32 = 1e-5
 
 
@@ -88,3 +92,38 @@ def test_gru_module_matches_jax_scan():
                                atol=ATOL_F32, rtol=0)
     np.testing.assert_allclose(got_h.detach().numpy(), np.asarray(want_h),
                                atol=ATOL_F32, rtol=0)
+
+
+def test_gru_gradients_match_jax_grad():
+    """B1's autograd (the torch-ops backward of _gru_scan_bwd): gradients of
+    the input and of every weight of a 2-layer bi-GRU against jax.grad
+    through the JAX GRU, with a cotangent on the outputs and on the final
+    hidden state."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(3, 9, 10)).astype(np.float32)
+    ct = rng.normal(size=(3, 9, 2 * H)).astype(np.float32)
+    jgru = JaxGRU(hidden_size=H, n_layers=2, bidirectional=True)
+    params = jgru.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+
+    def f(p, xx):
+        out, h = jgru.apply({"params": p}, xx)
+        return jnp.sum(out * ct) + jnp.sum(h ** 2)
+
+    gp, gx = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(x))
+    gru = GRU(10, H, n_layers=2).eval()
+    sd = {}
+    _gru(jax.device_get(params), sd, "gru", 2)
+    gru.load_state_dict({k[4:]: v for k, v in sd.items()}, strict=True)
+    tx = torch.from_numpy(x).requires_grad_()
+    calls = gru_recurrence_backward.calls
+    out, h = gru(tx)
+    ((out * torch.from_numpy(ct)).sum() + (h ** 2).sum()).backward()
+    assert gru_recurrence_backward.calls == calls + 2     # one per layer
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx),
+                               atol=ATOL_F32, rtol=0)
+    want = {}
+    _gru(jax.device_get(gp), want, "gru", 2)
+    for k, v in want.items():
+        np.testing.assert_allclose(getattr(gru, k[4:]).grad.numpy(),
+                                   v.numpy(), atol=ATOL_F32, rtol=0,
+                                   err_msg=k)

@@ -15,10 +15,19 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ha2g_tpu"}
 ALLOWED_THIRD_PARTY = {"torch", "numpy", "einops"}
 
 
+# the modules of the serving and training slices, which the scan must see
+PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
+                "synthesis.py", "models/common.py", "models/hierarchy.py",
+                "models/resnet_se.py", "models/tcn.py", "ops/contrastive.py",
+                "ops/gru.py", "ops/gru_kernel.py", "ops/mel.py",
+                "train/cascade.py", "train/hierarchy.py", "train/losses.py")
+
+
 def _port_files():
     files = sorted((ROOT / "ha2g_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
-    assert len(files) > 10 and all(f.exists() for f in files)
+    assert all(f.exists() for f in files)
+    assert {ROOT / "ha2g_torch" / m for m in PORT_MODULES} <= set(files)
     return files
 
 
