@@ -9,11 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    build of every kernel from csrc/ (one nvcc a source, all at once,
    sm_90a);
 2. kernels: each kernel against its plain PyTorch version on the card:
-   B1 (the GRU recurrence) forward at the serving shapes and one odd shape,
-   fp32 and bf16, and its autograd (kernel forward + PyTorch-ops backward)
-   against autograd through the plain version at the train shapes; B2-B4
-   (the flash contrastive loss) at the train step's N = 96 * 34 and
-   TED-Gesture's 256 * 34, and at a ragged N, D = 32 and 128;
+   B1 (the GRU recurrence, thread-block-cluster kernels) forward at the
+   serving and train shapes, ragged hidden slices and row groups, fp32
+   and bf16; B1's backward kernel against its plain loop; B1's autograd
+   (kernel forward + kernel backward) against autograd through the plain
+   version at the train shapes; B2-B4 (the flash contrastive loss) at the
+   train step's N = 96 * 34 and TED-Gesture's 256 * 34, and at a ragged N,
+   D = 32 and 128;
 3. serving: synthesis requests through make_synthesizer(...).generate and
    generate_fused on the full-width 6-level TED Expressive hierarchy
    (hidden 300, 4-layer bi-GRU, full SE-ResNet, bf16 compute, random
@@ -23,15 +25,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. training: HierarchySystem.train_step of the same hierarchy with
    configs_expressive/hierarchy.yaml (batch 96, bf16, every loss weight),
    one warm-up step and four GAN steps on random batches: every loss term
-   finite, the launch counts of B1 (forward and backward) and B2-B4 of
-   every step against the dataflow's, step times and peak memory; one GAN
-   step under torch.profiler; then an fp32 step of a narrow hierarchy on
-   the card against the same port on the CPU, every loss and gradient;
+   finite, the launch counts of B1 (forward, backward calls and backward
+   kernel) and B2-B4 of every step against the dataflow's, step times and
+   peak memory; one GAN step under torch.profiler; then an fp32 step of a
+   narrow hierarchy on the card against the same port on the CPU, every
+   loss and gradient;
 5. times on the card: end-to-end ms per request and, under
    torch.profiler, where its device time goes and the device's idle
    share; each kernel (CUDA events, median), its bound, its plain
    version, and the library call that computes the same function where
-   there is one; B1's PyTorch-ops backward per call.
+   there is one; B1 forward at B = 1, 8, 16, 96 with its clusters'
+   occupancy; B1's backward kernel and whole backward call.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -63,11 +67,12 @@ B1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 4 * 2 ** -8}
 # cuDNN convolutions (TF32 off) and cuBLAS products against the CPU's,
 # through 21 conv layers and 6 levels x 4 GRU layers
 SLICE_ATOL = 1e-3
-# B1's autograd against autograd through its plain version, relative L2
-# error of each gradient.  fp32: summation order of the products.  bf16:
-# the plain version's graph rounds every step's gradient to bf16 (2^-8
-# relative) where the PyTorch-ops backward keeps fp32, over 34 steps, on
-# top of one-ulp carry flips in the forward.
+# B1's autograd against autograd through its plain version, and B1's
+# backward kernel against its plain loop: relative L2 error of each
+# gradient.  fp32: summation order of the products.  bf16 (autograd): the
+# plain version's graph rounds every step's gradient to bf16 (2^-8
+# relative) where the backward kernel keeps fp32, over 34 steps, on top of
+# one-ulp carry flips in the forward.
 B1_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # B2-B4 against their plain versions (random unit rows): sums of N terms
 # in another order; logz and diag relative to themselves, dA and dB
@@ -149,10 +154,18 @@ def _b1_inputs(T, B, H, dtype, seed=0):
     return [t.to("cuda", dtype).contiguous() for t in (xp, h0, w_hh, b_hh)]
 
 
+# B1 shapes held against the plain version: the serving and train shapes,
+# one and several row groups (97: a ragged last group), hidden sizes whose
+# last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48)
+B1_SHAPES = ((34, 1, 300), (34, 8, 300), (34, 16, 300), (34, 96, 300),
+             (34, 97, 300), (7, 3, 48), (11, 5, 200), (6, 16, 45))
+B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200))
+
+
 def _b1_check():
     from ha2g_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
     errs = {}
-    for T, B, H in ((34, 1, 300), (34, 8, 300), (34, 16, 300), (7, 3, 48)):
+    for T, B, H in B1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _b1_inputs(T, B, H, dtype)
             got = gru_recurrence(*args)
@@ -171,8 +184,56 @@ def _b1_check():
     return errs
 
 
+def _b1_bwd_inputs(T, B, H, dtype, seed):
+    """The backward loop's inputs: xp, hh, h_prev, w_hh, d_outs."""
+    from ha2g_torch.ops.gru_kernel import gru_recurrence
+    xp, h0, w_hh, b_hh = _b1_inputs(T, B, H, dtype, seed=seed)
+    outs = gru_recurrence(xp, h0, w_hh, b_hh)
+    h_prev = torch.cat([h0[None], outs[:-1]]).float()
+    hh = (torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh.float())
+          + b_hh.float()[None, :, None]).contiguous()
+    d_outs = torch.randn(outs.shape, generator=torch.Generator()
+                         .manual_seed(seed + 1)).to("cuda", dtype)
+    return xp, hh, h_prev, w_hh, d_outs
+
+
+def _b1_bwd_check():
+    """B1's backward kernel against its plain loop on the same inputs,
+    relative L2 error of d_gx, d_gh and d_h0."""
+    from ha2g_torch.ops.gru_kernel import (gru_backward_loop,
+                                           gru_backward_loop_plain)
+    errs = {}
+    for T, B, H in B1_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _b1_bwd_inputs(T, B, H, dtype, seed=B + H)
+            got = gru_backward_loop(*args)
+            want = gru_backward_loop_plain(*args)
+            torch.cuda.synchronize()
+            rel = [_rel(g, w) for g, w in zip(got, want)]
+            ok = (all(bool(torch.isfinite(g).all()) for g in got)
+                  and max(rel) <= B1_GRAD_REL[dtype])
+            _line("b1-bwd-check", T=T, B=B, H=H, dtype=str(dtype)[6:],
+                  rel_err_dgx_dgh_dh0="/".join(f"{e:.2e}" for e in rel),
+                  tol=f"{B1_GRAD_REL[dtype]:.0e}", ok=ok)
+            if not ok:
+                raise AssertionError(f"B1 backward kernel disagrees with its "
+                                     f"plain loop at T={T} B={B} H={H} "
+                                     f"{dtype}")
+            errs[(T, B, H, dtype)] = max((g - w).abs().max().item()
+                                         for g, w in zip(got, want))
+    return errs
+
+
+def _bound(n_bytes, flops, dtype):
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _b1_times(T, B, H, dtype):
-    from ha2g_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
+    from ha2g_torch.ops.gru_kernel import (cluster_plan, gru_recurrence,
+                                           gru_recurrence_plain,
+                                           max_active_clusters)
     args = _b1_inputs(T, B, H, dtype, seed=1)
     ms = _event_ms(lambda: gru_recurrence(*args), inner=20)
     plain_ms = _event_ms(lambda: gru_recurrence_plain(*args), inner=3)
@@ -186,14 +247,13 @@ def _b1_times(T, B, H, dtype):
     elem = torch.finfo(dtype).bits // 8
     n_bytes = sum(a.numel() for a in args) * elem + T * 2 * B * H * elem
     flops = 2 * T * 2 * B * H * 3 * H + 12 * T * 2 * B * H
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = _bound(n_bytes, flops, dtype)
     _line("b1-time", T=T, B=B, H=H, dtype=str(dtype)[6:], ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
-          bytes=n_bytes, flops=flops)
+          bytes=n_bytes, flops=flops,
+          clusters=cluster_plan(H, B, dtype)["clusters"],
+          max_active_clusters=max_active_clusters(B, H, dtype))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -205,8 +265,8 @@ def _rel(got, want) -> float:
 
 
 def _b1_grad_check():
-    """B1's autograd (kernel forward, PyTorch-ops backward) against
-    autograd through its plain version, at the train step's shapes."""
+    """B1's autograd (kernel forward, kernel backward) against autograd
+    through its plain version, at the train step's shapes."""
     from ha2g_torch.ops.gru_kernel import (gru_recurrence_fn,
                                            gru_recurrence_plain)
     worst = {}
@@ -233,18 +293,63 @@ def _b1_grad_check():
     return worst
 
 
-def _b1_backward_ms(T=34, B=96, H=300, dtype=torch.bfloat16) -> float:
-    """One call of B1's PyTorch-ops backward at the train shape."""
-    from ha2g_torch.ops.gru_kernel import (gru_recurrence,
-                                           gru_recurrence_backward)
+def _b1_backward_times(dtype, T=34, B=96, H=300):
+    """B1's backward at the train shape: the kernel (the serial loop), its
+    plain loop, and the whole backward call (hoisted hh, kernel, d_w_hh,
+    d_b_hh), each with its bound; the library yardstick is cuDNN's
+    bidirectional GRU layer, forward + backward minus forward.  The
+    kernel's arithmetic is fp32 in both storage types, so its bound takes
+    the fp32 rate: one T-wide product for the kernel, three for the call.
+    """
+    from ha2g_torch.ops.gru_kernel import (cluster_plan, gru_backward_loop,
+                                           gru_backward_loop_plain,
+                                           gru_recurrence,
+                                           gru_recurrence_backward,
+                                           max_active_clusters)
+    loop_args = _b1_bwd_inputs(T, B, H, dtype, seed=2)
+    ms = _event_ms(lambda: gru_backward_loop(*loop_args), inner=20)
+    plain_ms = _event_ms(lambda: gru_backward_loop_plain(*loop_args), inner=3)
     args = _b1_inputs(T, B, H, dtype, seed=2)
     outs = gru_recurrence(*args)
-    d_outs = torch.randn_like(outs)
-    ms = _event_ms(lambda: gru_recurrence_backward(*args, outs, d_outs),
-                   inner=5)
+    d_outs = loop_args[-1]
+    call_ms = _event_ms(lambda: gru_recurrence_backward(*args, outs, d_outs),
+                        inner=10)
+    lib = torch.nn.GRU(2 * H, H, 1, bidirectional=True).to("cuda", dtype)
+    lib.flatten_parameters()
+    x = torch.randn((T, B, 2 * H), device="cuda", dtype=dtype,
+                    requires_grad=True)
+    ct = torch.randn((T, B, 2 * H), device="cuda", dtype=dtype)
+
+    def fwd_bwd():
+        lib(x)[0].backward(ct)
+
+    fwd_ms = _event_ms(lambda: lib(x), inner=10)
+    library_ms = _event_ms(fwd_bwd, inner=10) - fwd_ms
+    e = torch.finfo(dtype).bits // 8
+    n_step, g = T * 2 * B * H, T * 2 * B * 3 * H
+    product = 2 * n_step * 3 * H
+    # kernel: xp, w_hh, d_outs (storage type), hh, h_prev (fp32) in;
+    # d_gx, d_gh, d_h0 (fp32) out; ~40 elementwise operations a unit
+    k_bytes = (g + 2 * H * 3 * H + n_step) * e + (g + n_step) * 4 \
+        + (2 * g + 2 * B * H) * 4
+    k_bound, k_by = _bound(k_bytes, product + 40 * n_step, torch.float32)
+    # call: xp, h0, w_hh, b_hh, outs, d_outs in; d_xp, d_h0, d_w_hh, d_b_hh
+    # out, all in the storage type
+    c_bytes = (2 * g + 2 * (2 * B * H + 2 * H * 3 * H + 2 * 3 * H)
+               + 2 * n_step) * e
+    c_bound, c_by = _bound(c_bytes, 3 * product + 40 * n_step,
+                           torch.float32)
     _line("b1-backward-time", T=T, B=B, H=H, dtype=str(dtype)[6:],
-          ms=f"{ms:.4f}", note="PyTorch ops, not a kernel")
-    return ms
+          kernel_ms=f"{ms:.4f}", plain_loop_ms=f"{plain_ms:.4f}",
+          kernel_bound_ms=f"{k_bound:.6f}", kernel_bound_by=k_by,
+          call_ms=f"{call_ms:.4f}", call_bound_ms=f"{c_bound:.6f}",
+          call_bound_by=c_by, library_ms=f"{library_ms:.4f}",
+          library="cuDNN GRU fwd+bwd - fwd",
+          clusters=cluster_plan(H, B, dtype)["clusters"],
+          max_active_clusters=max_active_clusters(B, H, dtype, backward=True))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+            "bound_by": k_by, "call_ms": call_ms, "call_bound_ms": c_bound,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +422,7 @@ def _b234_times(N, D=32):
     for k, (fn, plain, n_bytes, flops) in runs.items():
         ms = _event_ms(fn, inner=10)
         plain_ms = _event_ms(plain, inner=2)
-        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = _bound(n_bytes, flops, torch.float32)
         _line(f"{k}-time", N=N, D=D, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
               bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, bytes=n_bytes,
               flops=flops, library_ms="none",
@@ -332,6 +434,7 @@ def _b234_times(N, D=32):
 
 # kernel name patterns in the profiler's device events
 KERNEL_PATTERNS = {"b1": "gru_recurrence_kernel",
+                   "b1_bwd": "gru_backward_kernel",
                    "b2": "contrastive_fwd_kernel",
                    "b3": "contrastive_bwd_kernel<false>",
                    "b4": "contrastive_bwd_kernel<true>"}
@@ -360,11 +463,12 @@ def _profile(name, fn, e2e_ms, kernels=("b1",)):
         return
     busy = sum(ms for ms, _ in per_name.values())
     fields = {}
+    counts = {}
     for k in kernels:
         ms, n = (sum(v[i] for key, v in per_name.items()
                      if KERNEL_PATTERNS[k] in key) for i in (0, 1))
         fields[f"{k}_device_ms"] = f"{ms:.2f}"
-        fields[f"{k}_kernels"] = n
+        fields[f"{k}_kernels"] = counts[k] = n
     _line("profile", request=name, e2e_ms=f"{e2e_ms:.2f}",
           device_busy_ms=f"{busy:.2f}",
           idle_share=f"{1 - busy / e2e_ms:.3f}",
@@ -373,6 +477,7 @@ def _profile(name, fn, e2e_ms, kernels=("b1",)):
     for k, (ms, n) in top:
         _line("profile-top", request=name, ms=f"{ms:.2f}", count=n,
               kernel=k[:90].replace(" ", "_"))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -518,12 +623,12 @@ def _train_batch(cfg, B, seed):
 
 def _counters():
     """The launch counts of every kernel of the train step, and the calls
-    of B1's PyTorch-ops backward."""
+    of B1's backward."""
     from ha2g_torch.ops import contrastive as C
     from ha2g_torch.ops import gru_kernel as G
     return {"b1": G.gru_recurrence, "b1_backward": G.gru_recurrence_backward,
-            "b2": C.contrastive_fwd, "b3": C.contrastive_bwd_da,
-            "b4": C.contrastive_bwd_db}
+            "b1_bwd": G.gru_backward_loop, "b2": C.contrastive_fwd,
+            "b3": C.contrastive_bwd_da, "b4": C.contrastive_bwd_db}
 
 
 def _reset_counts():
@@ -550,7 +655,8 @@ def _expected_counts(cfg, gan_on):
     else:
         fwd = 2 * cascade + d_layers
         bwd = cascade
-    return {"b1": fwd, "b1_backward": bwd, "b2": 2, "b3": 2, "b4": 2}
+    return {"b1": fwd, "b1_backward": bwd, "b1_bwd": bwd, "b2": 2, "b3": 2,
+            "b4": 2}
 
 
 def _train():
@@ -606,9 +712,14 @@ def _train():
           gan_step_ms_median_of_3=f"{gan_ms:.1f}",
           samples_per_s=f"{B / gan_ms * 1e3:.1f}",
           peak_memory_gib=f"{peak:.2f}")
-    _profile("train_gan_step", lambda: system.train_step(
+    seen = _profile("train_gan_step", lambda: system.train_step(
         _train_batch(cfg, B, 200), True, gen), gan_ms,
-        kernels=("b1", "b2", "b3", "b4"))
+        kernels=("b1", "b1_bwd", "b2", "b3", "b4"))
+    want = _expected_counts(cfg, True)
+    if seen is not None and (seen["b1"], seen["b1_bwd"]) != (want["b1"],
+                                                             want["b1_bwd"]):
+        raise AssertionError(f"the GAN step's profile shows {seen} B1 "
+                             f"kernels, the dataflow {want}")
     del system
     torch.cuda.empty_cache()
     return main_path
@@ -702,6 +813,7 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     errs = _b1_check()
+    bwd_errs = _b1_bwd_check()
     _b1_grad_check()
     b234_errs = _b234_check()
 
@@ -709,8 +821,8 @@ def main() -> int:
     _reset_counts()
     serving_b1, per_request, e2e = _slice()
     serving = {**_read_counts(), "b1": serving_b1}
-    if serving["b2"] or serving["b3"] or serving["b4"]:
-        raise AssertionError("contrastive kernels launched while serving")
+    if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
+        raise AssertionError("training kernels launched while serving")
 
     # phase 4: the training path
     training = _train()
@@ -718,7 +830,7 @@ def main() -> int:
 
     # phase 5: kernel times at the serving and train shapes
     times = {}
-    for B in (1, 8, 16):
+    for B in (1, 8, 16, 96):
         for dtype in (torch.bfloat16, torch.float32):
             times[(B, dtype)] = _b1_times(34, B, 300, dtype)
     main = times[(8, torch.bfloat16)]
@@ -728,8 +840,8 @@ def main() -> int:
         _line("e2e-b1-share", request=name, e2e_ms=f"{ms:.2f}",
               b1_launches=per_request, b1_ms=f"{b1_ms:.2f}",
               share=f"{b1_ms / ms:.3f}")
-    _b1_times(34, 96, 300, torch.bfloat16)      # the train step's shape
-    _b1_backward_ms()
+    bwd = {dtype: _b1_backward_times(dtype)
+           for dtype in (torch.bfloat16, torch.float32)}
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
 
     print(smi, flush=True)
@@ -744,6 +856,16 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"]}]
+    t = bwd[torch.bfloat16]
+    entries.append({
+        "name": "gru_recurrence_backward", "route": "cuda",
+        "source": "ha2g_torch/csrc/gru_recurrence.cu",
+        "replaces": "ha2g_tpu/ops/gru.py:100",
+        "launches": serving["b1_bwd"] + training["b1_bwd"],
+        "launches_by_path": by_path("b1_bwd"),
+        "max_abs_err": bwd_errs[(34, 96, 300, torch.bfloat16)],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for k, name, line in (("b2", "contrastive_fwd", 51),
                           ("b3", "contrastive_bwd_da", 97),
                           ("b4", "contrastive_bwd_db", 115)):

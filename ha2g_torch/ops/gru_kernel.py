@@ -1,4 +1,5 @@
-"""Kernel B1: the fused bidirectional GRU recurrence of one layer.
+"""Kernel B1: the fused bidirectional GRU recurrence of one layer, forward
+and backward.
 
 ``gru_recurrence`` launches the hand-written CUDA kernel
 ``csrc/gru_recurrence.cu`` (replacing the TPU kernel
@@ -13,10 +14,17 @@ b_hh (2, 3H) -> outputs (T, 2, B, H).  Gates are computed in float32; the
 carry is rounded to the input dtype (float32 or bfloat16) every step.
 
 ``gru_recurrence_fn`` is the differentiable form: its forward is
-``gru_recurrence`` (the kernel on the card), its backward
-``gru_recurrence_backward``, PyTorch ops that copy the JAX package's hand
-VJP ``ha2g_tpu/ops/gru.py::_gru_scan_bwd`` (the JAX package has no Pallas
-backward to port).  ``gru_recurrence_backward.calls`` counts its calls.
+``gru_recurrence``, its backward ``gru_recurrence_backward``, which copies
+the JAX package's hand VJP ``ha2g_tpu/ops/gru.py::_gru_scan_bwd`` (the JAX
+package has no Pallas backward to port): one hoisted product recomputes
+hh, the serial reverse loop ``gru_backward_loop`` runs the backward kernel
+of the same source on CUDA tensors (``.launches``) and its plain version
+``gru_backward_loop_plain`` on CPU tensors, and d_w_hh / d_b_hh are one
+contraction each.  ``gru_recurrence_backward.calls`` counts its calls.
+
+Both kernels split the hidden units over a thread-block cluster of
+``CLUSTER`` CTAs (``cluster_plan``); ``MAX_HIDDEN`` is the largest hidden
+size whose share of ``w_hh`` fits one CTA's shared memory in both dtypes.
 """
 
 from __future__ import annotations
@@ -30,18 +38,116 @@ from ha2g_torch import kernels
 
 SOURCE = kernels.CSRC / "gru_recurrence.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel keeps 4 rows x 4H floats of carry and gate sums in 48 KB of
-# shared memory
-MAX_HIDDEN = 768
+
+# the cluster split, as csrc/gru_recurrence.cu computes it
+CLUSTER = 8            # CTAs per cluster
+THREADS = 256          # threads per CTA
+MAX_ITEMS = 4          # (row, unit) items per thread
+SMEM_LIMIT = 232448    # bytes of dynamic shared memory a CTA may use
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rup(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def _ldw(k4: int) -> int:
+    """Row stride of the FFMA kernels' w_hh slice: k4 / 4 odd."""
+    return k4 if k4 // 4 % 2 else k4 + 4
+
+
+def rows_per_group(B: int) -> int:
+    """Rows of the batch one cluster carries."""
+    return next((rb for rb in (1, 2, 4, 8) if B <= rb), 16)
+
+
+def cluster_plan(H: int, B: int, dtype: torch.dtype) -> dict:
+    """How both kernels split a layer of hidden size H at batch B: the
+    unit slice of every CTA of a cluster, the rows a cluster carries, the
+    number of clusters, and each kernel's shared memory in bytes (the
+    forward on the tensor cores for bf16, rows padded to 16; the backward
+    with one or two d_gh buffers).  Raises ValueError where a CTA's share
+    does not fit."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype}")
+    elem = 4 if dtype == torch.float32 else 2
+    rb = rows_per_group(B)
+    hs = _cdiv(H, CLUSTER)
+    h4, g4 = _rup(H, 4), _rup(3 * H, 4)
+    mma = dtype == torch.bfloat16
+    if mma:     # w_hh's slice lives in registers
+        npad, kp = _rup(3 * hs, 8), _rup(H, 16) + 8
+        fwd = _rup(npad * 4, 16) + _rup(2 * 16 * kp * 2, 16) + 16 * npad * 4
+    else:
+        n = 3 * hs
+        ks = THREADS // (32 * (rb // min(rb, 8)))
+        fwd = (_rup(n * _ldw(h4) * elem, 16) + _rup(n * 4, 16)
+               + _rup(2 * rb * h4 * 4, 16) + ks * rb * n * 4)
+
+    def bwd(nbuf):
+        ks = THREADS // (8 * (rb // min(rb, 4)))
+        return (_rup(hs * _ldw(g4) * elem, 16) + _rup(nbuf * rb * g4 * 4, 16)
+                + ks * rb * hs * 4)
+
+    nbuf = 2 if bwd(2) <= SMEM_LIMIT else 1
+    plan = {"slices": [(min(H, k * hs), min(H, (k + 1) * hs))
+                       for k in range(CLUSTER)],
+            "rows": rb, "clusters": 2 * _cdiv(B, rb), "mma": mma,
+            "smem_forward": fwd, "smem_backward": bwd(nbuf)}
+    # register tiles: 3 hs gate columns over 32 lanes x 4, hs units over
+    # 8 lanes x 5; the mma B fragments cover 20 k-steps of 16
+    if (max(fwd, bwd(nbuf)) > SMEM_LIMIT or rb * hs > MAX_ITEMS * THREADS
+            or 3 * hs > 128 or hs > 40 or (mma and H > 320)):
+        raise ValueError(f"hidden size {H} does not fit the cluster kernels "
+                         f"(shared memory {fwd} / {bwd(nbuf)} bytes of "
+                         f"{SMEM_LIMIT})")
+    return plan
+
+
+def _max_hidden() -> int:
+    def fits(H):
+        try:
+            for dtype in _DTYPE_CODES:
+                for B in (1, 2, 4, 8, 16):
+                    cluster_plan(H, B, dtype)
+        except ValueError:
+            return False
+        return True
+    H = 1
+    while fits(H + 1):
+        H += 1
+    return H
+
+
+MAX_HIDDEN = _max_hidden()
 
 
 @functools.cache
-def _entry():
-    fn = kernels.load(SOURCE).ha2g_gru_recurrence
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = kernels.load(SOURCE)
+    lib.ha2g_gru_recurrence.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ha2g_gru_backward.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ha2g_gru_max_active_clusters.argtypes = [ctypes.c_int] * 4
+    for fn in (lib.ha2g_gru_recurrence, lib.ha2g_gru_backward,
+               lib.ha2g_gru_max_active_clusters):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def max_active_clusters(B: int, H: int, dtype: torch.dtype,
+                        backward: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters for one kernel at one shape."""
+    n = _lib().ha2g_gru_max_active_clusters(B, H, _DTYPE_CODES[dtype],
+                                            int(backward))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {-n}")
+    return n
 
 
 def _check(xp, h0, w_hh, b_hh) -> tuple[int, int, int]:
@@ -59,6 +165,27 @@ def _check(xp, h0, w_hh, b_hh) -> tuple[int, int, int]:
     if xp.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {xp.dtype}")
     return T, B, H
+
+
+def _on_cuda(name: str, tensors) -> bool:
+    """False for all-CPU tensors (the plain version); True for contiguous
+    tensors on one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device or "
+                         f"all on the CPU, got {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return True
+
+
+def _launch(name: str, fn, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def gru_recurrence_plain(xp, h0, w_hh, b_hh) -> torch.Tensor:
@@ -84,26 +211,14 @@ def gru_recurrence_plain(xp, h0, w_hh, b_hh) -> torch.Tensor:
 def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
     """The recurrence of one bidirectional GRU layer (see module doc)."""
     T, B, H = _check(xp, h0, w_hh, b_hh)
-    devices = {t.device for t in (xp, h0, w_hh, b_hh)}
-    if devices == {torch.device("cpu")}:
+    if not _on_cuda("gru_recurrence", (xp, h0, w_hh, b_hh)):
         return gru_recurrence_plain(xp, h0, w_hh, b_hh)
-    if len(devices) != 1 or xp.device.type != "cuda":
-        raise ValueError(f"gru_recurrence needs all tensors on one CUDA "
-                         f"device or all on the CPU, got {devices}")
-    if not all(t.is_contiguous() for t in (xp, h0, w_hh, b_hh)):
-        raise ValueError("gru_recurrence needs contiguous tensors")
     if H > MAX_HIDDEN:
         raise ValueError(f"hidden size {H} exceeds the kernel's {MAX_HIDDEN}")
     out = torch.empty((T, 2, B, H), dtype=xp.dtype, device=xp.device)
-    fn = _entry()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
-                 b_hh.data_ptr(), out.data_ptr(), T, B, H,
-                 _DTYPE_CODES[xp.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"gru_recurrence kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch("gru_recurrence", _lib().ha2g_gru_recurrence, xp.device,
+            xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            out.data_ptr(), T, B, H, _DTYPE_CODES[xp.dtype])
     gru_recurrence.launches += 1
     return out
 
@@ -111,24 +226,14 @@ def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
 gru_recurrence.launches = 0
 
 
-def gru_recurrence_backward(xp, h0, w_hh, b_hh, outs, d_outs):
-    """(d_xp, d_h0, d_w_hh, d_b_hh) of one layer's recurrence given the
-    forward's inputs, its outputs and their cotangent, all math in float32.
-
-    The kernel keeps no per-step hh = h_prev . w_hh + b_hh, so it is
-    recomputed for all T in one batched product from cat(h0, outs[:-1]), as
-    the JAX Pallas path recomputes it by re-running the scan
-    (ha2g_tpu/ops/pallas_gru.py:138-141).  The gate factors of every step
-    depend only on the forward, so they are formed for all T at once; the
-    reverse loop carries dh through one d_gh . w_hh^T product per step, and
-    d_w_hh / d_b_hh are single hoisted contractions over (T, B).
-    """
-    gru_recurrence_backward.calls += 1
-    T, H = xp.shape[0], h0.shape[-1]
-    w = w_hh.float()
-    h_prev = torch.cat([h0[None], outs[:-1]]).float()            # (T,2,B,H)
-    hh = torch.einsum("tdbh,dhg->tdbg", h_prev, w) \
-        + b_hh.float()[None, :, None]
+def gru_backward_loop_plain(xp, hh, h_prev, w_hh, d_outs):
+    """The serial part of the backward: (d_gx, d_gh, d_h0) in float32 from
+    xp (T, 2, B, 3H), hh = h_prev . w_hh + b_hh (T, 2, B, 3H) float32,
+    h_prev (T, 2, B, H) float32, w_hh (2, H, 3H) and the cotangent d_outs
+    (T, 2, B, H).  The gate factors of every step depend only on the
+    forward, so they are formed for all T at once; the reverse loop
+    carries dh through one d_gh . w_hh^T product a step."""
+    T, H = xp.shape[0], h_prev.shape[-1]
     x = xp.float()
     r = torch.sigmoid(x[..., :H] + hh[..., :H])
     z = torch.sigmoid(x[..., H:2 * H] + hh[..., H:2 * H])
@@ -140,7 +245,7 @@ def gru_recurrence_backward(xp, h0, w_hh, b_hh, outs, d_outs):
     f_z = (h_prev - n) * z * (1.0 - z)
     f_r = f_n * h_n * r * (1.0 - r)
     coef_gh = torch.cat([f_r, f_z, f_n * r], dim=-1)          # d_gh = g coef
-    w_t = w.transpose(1, 2)                                    # (2, 3H, H)
+    w_t = w_hh.float().transpose(1, 2)                         # (2, 3H, H)
     d_outs = d_outs.float()
     g_seq = torch.empty_like(d_outs)
     dh = torch.zeros_like(d_outs[0])
@@ -149,11 +254,64 @@ def gru_recurrence_backward(xp, h0, w_hh, b_hh, outs, d_outs):
         g_seq[t] = g
         dh = g * z[t] + torch.bmm(g.repeat(1, 1, 3) * coef_gh[t], w_t)
     g3 = g_seq.repeat(1, 1, 1, 3)
-    d_gh = g3 * coef_gh
-    d_xp = g3 * torch.cat([f_r, f_z, f_n], dim=-1)
+    return g3 * torch.cat([f_r, f_z, f_n], dim=-1), g3 * coef_gh, dh
+
+
+def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
+    """``gru_backward_loop_plain``'s function: the backward kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if xp.dim() != 4 or xp.shape[1] != 2 or xp.shape[3] % 3:
+        raise ValueError(f"xp must be (T, 2, B, 3H), got {tuple(xp.shape)}")
+    T, _, B, G = xp.shape
+    H = G // 3
+    want = {"hh": ((T, 2, B, G), torch.float32),
+            "h_prev": ((T, 2, B, H), torch.float32),
+            "w_hh": ((2, H, G), xp.dtype), "d_outs": ((T, 2, B, H), xp.dtype)}
+    for name, t in (("hh", hh), ("h_prev", h_prev), ("w_hh", w_hh),
+                    ("d_outs", d_outs)):
+        if (tuple(t.shape), t.dtype) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{(tuple(t.shape), t.dtype)}")
+    if xp.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {xp.dtype}")
+    tensors = (xp, hh, h_prev, w_hh, d_outs)
+    if not _on_cuda("gru_backward_loop", tensors):
+        return gru_backward_loop_plain(*tensors)
+    if H > MAX_HIDDEN:
+        raise ValueError(f"hidden size {H} exceeds the kernel's {MAX_HIDDEN}")
+    d_gx = torch.empty((T, 2, B, G), dtype=torch.float32, device=xp.device)
+    d_gh = torch.empty_like(d_gx)
+    d_h0 = torch.empty((2, B, H), dtype=torch.float32, device=xp.device)
+    _launch("gru_backward_loop", _lib().ha2g_gru_backward, xp.device,
+            *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
+            T, B, H, _DTYPE_CODES[xp.dtype])
+    gru_backward_loop.launches += 1
+    return d_gx, d_gh, d_h0
+
+
+gru_backward_loop.launches = 0
+
+
+def gru_recurrence_backward(xp, h0, w_hh, b_hh, outs, d_outs):
+    """(d_xp, d_h0, d_w_hh, d_b_hh) of one layer's recurrence given the
+    forward's inputs, its outputs and their cotangent, all math in float32.
+
+    The kernel keeps no per-step hh = h_prev . w_hh + b_hh, so it is
+    recomputed for all T in one batched product from cat(h0, outs[:-1]), as
+    the JAX Pallas path recomputes it by re-running the scan
+    (ha2g_tpu/ops/pallas_gru.py:138-141); the serial loop is
+    ``gru_backward_loop``; d_w_hh / d_b_hh are single hoisted contractions
+    over (T, B).
+    """
+    gru_recurrence_backward.calls += 1
+    h_prev = torch.cat([h0[None], outs[:-1]]).float()            # (T,2,B,H)
+    hh = torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh.float()) \
+        + b_hh.float()[None, :, None]
+    d_gx, d_gh, d_h0 = gru_backward_loop(xp, hh.contiguous(), h_prev, w_hh,
+                                         d_outs.contiguous())
     d_w_hh = torch.einsum("tdbh,tdbg->dhg", h_prev, d_gh)
     d_b_hh = d_gh.sum(dim=(0, 2))
-    return (d_xp.to(xp.dtype), dh.to(h0.dtype), d_w_hh.to(w_hh.dtype),
+    return (d_gx.to(xp.dtype), d_h0.to(h0.dtype), d_w_hh.to(w_hh.dtype),
             d_b_hh.to(b_hh.dtype))
 
 

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from ha2g_torch.ops import contrastive as C
-from ha2g_torch.ops.gru_kernel import (gru_recurrence, gru_recurrence_fn,
+from ha2g_torch.ops import gru_kernel as K
+from ha2g_torch.ops.gru_kernel import (MAX_HIDDEN, gru_backward_loop,
+                                       gru_backward_loop_plain,
+                                       gru_recurrence, gru_recurrence_fn,
                                        gru_recurrence_plain)
 
 pytestmark = pytest.mark.cuda
@@ -27,16 +30,27 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,B,H", [(7, 3, 48), (34, 1, 300), (34, 8, 300)])
-def test_kernel_matches_plain(cuda, T, B, H, dtype):
-    g = torch.Generator().manual_seed(0)
+# the cluster split: ragged last slices (300 = 7 * 38 + 34, 45), one row
+# group (B <= 16) and several (96, 97: a ragged last group), FFMA rows
+# 1 / 4 / 8 and the bf16 tensor-core path at 16 rows
+SHAPES = [(7, 3, 48), (34, 1, 300), (34, 8, 300), (34, 96, 300),
+          (34, 97, 300), (11, 5, 200), (6, 16, 45)]
+
+
+def _b1_args(T, B, H, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
     k = H ** -0.5
     args = [torch.randn((T, 2, B, 3 * H), generator=g) * 0.5,
             torch.randn((2, B, H), generator=g) * 0.5,
             (torch.rand((2, H, 3 * H), generator=g) * 2 - 1) * k,
             (torch.rand((2, 3 * H), generator=g) * 2 - 1) * k]
-    args = [a.to(cuda, dtype) for a in args]
+    return [a.to(device, dtype) for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_kernel_matches_plain(cuda, T, B, H, dtype):
+    args = _b1_args(T, B, H, dtype, cuda)
     before = gru_recurrence.launches
     got = gru_recurrence(*args)
     torch.cuda.synchronize()
@@ -44,6 +58,52 @@ def test_kernel_matches_plain(cuda, T, B, H, dtype):
     want = gru_recurrence_plain(*args)
     assert got.dtype == dtype and got.shape == (T, 2, B, H)
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_backward_kernel_matches_plain_loop(cuda, T, B, H, dtype):
+    """The backward kernel against the plain loop on the same inputs: both
+    fp32 throughout, so only summation order differs."""
+    xp, h0, w_hh, b_hh = _b1_args(T, B, H, dtype, cuda, seed=3)
+    outs = gru_recurrence_plain(xp, h0, w_hh, b_hh)
+    h_prev = torch.cat([h0[None], outs[:-1]]).float()
+    hh = (torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh.float())
+          + b_hh.float()[None, :, None]).contiguous()
+    d_outs = torch.randn(outs.shape, generator=torch.Generator()
+                         .manual_seed(4)).to(cuda, dtype)
+    before = gru_backward_loop.launches
+    got = gru_backward_loop(xp, hh, h_prev, w_hh, d_outs)
+    torch.cuda.synchronize()
+    assert gru_backward_loop.launches == before + 1
+    want = gru_backward_loop_plain(xp, hh, h_prev, w_hh, d_outs)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert ((a.double() - b.double()).norm()
+                / b.double().norm()).item() <= 1e-4
+
+
+def test_kernels_reject_hidden_above_max(cuda):
+    H = MAX_HIDDEN + 1
+    xp, h0, w_hh, b_hh = _b1_args(2, 1, H, torch.float32, cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        gru_recurrence(xp, h0, w_hh, b_hh)
+    f32 = dict(device=cuda, dtype=torch.float32)
+    with pytest.raises(ValueError, match="exceeds"):
+        gru_backward_loop(xp, torch.zeros(xp.shape, **f32),
+                          torch.zeros((2, 2, 1, H), **f32), w_hh,
+                          torch.zeros((2, 2, 1, H), **f32))
+
+
+def test_max_hidden_launches(cuda):
+    """The largest hidden size runs in both dtypes at 16 rows, where the
+    shared memory is largest."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _b1_args(3, 16, MAX_HIDDEN, dtype, cuda)
+        got = gru_recurrence(*args)
+        want = gru_recurrence_plain(*args)
+        assert K.max_active_clusters(16, MAX_HIDDEN, dtype) >= 1
+        assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
 def test_kernel_rejects_non_contiguous(cuda):
@@ -56,22 +116,24 @@ def test_kernel_rejects_non_contiguous(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_autograd_matches_plain_autograd(cuda, dtype):
-    """Kernel forward + PyTorch-ops backward against autograd through the
+@pytest.mark.parametrize("T,B,H", [(34, 6, 64), (34, 96, 300)])
+def test_kernel_autograd_matches_plain_autograd(cuda, dtype, T, B, H):
+    """Kernel forward + kernel backward against autograd through the
     plain version (relative L2 per gradient; bf16: the plain graph rounds
     every step's gradient to bf16)."""
     g = torch.Generator().manual_seed(1)
-    T, B, H = 34, 6, 64
     args = [torch.randn((T, 2, B, 3 * H), generator=g) * 0.5,
             torch.randn((2, B, H), generator=g) * 0.5,
             (torch.rand((2, H, 3 * H), generator=g) * 2 - 1) * H ** -0.5,
             (torch.rand((2, 3 * H), generator=g) * 2 - 1) * H ** -0.5]
     ct = torch.randn((T, 2, B, H), generator=g).to(cuda)
     grads = []
+    launches = gru_backward_loop.launches
     for fn in (gru_recurrence_fn, gru_recurrence_plain):
         leaves = [a.to(cuda, dtype).requires_grad_() for a in args]
         (fn(*leaves).float() * ct).sum().backward()
         grads.append([t.grad.double() for t in leaves])
+    assert gru_backward_loop.launches == launches + 1
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for got, want in zip(*grads):
         assert ((got - want).norm() / want.norm()).item() <= tol

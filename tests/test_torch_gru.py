@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from ha2g_tpu.ops.gru import GRU as JaxGRU
+from ha2g_tpu.ops.gru import _gru_scan
 from ha2g_tpu.ops.pallas_gru import _pallas_forward, gru_sequence_reference
 from ha2g_torch.convert import _gru
 from ha2g_torch.ops.gru import GRU
-from ha2g_torch.ops.gru_kernel import (gru_recurrence,
+from ha2g_torch.ops.gru_kernel import (MAX_HIDDEN, cluster_plan,
+                                       gru_backward_loop, gru_recurrence,
                                        gru_recurrence_backward,
                                        gru_recurrence_plain)
 
@@ -127,3 +129,64 @@ def test_gru_gradients_match_jax_grad():
         np.testing.assert_allclose(getattr(gru, k[4:]).grad.numpy(),
                                    v.numpy(), atol=ATOL_F32, rtol=0,
                                    err_msg=k)
+
+
+def test_split_plain_backward_matches_jax_vjp():
+    """The plain backward as the port splits it (hoisted hh, the serial
+    loop gru_backward_loop on CPU tensors, hoisted d_w_hh / d_b_hh) against
+    jax.vjp of _gru_scan, with a cotangent on the outputs and on the final
+    state (the port's recurrence returns no separate final state, so that
+    cotangent joins d_outs[-1])."""
+    t, b, h = 7, 3, 48
+    rng = np.random.default_rng(4)
+    xp = (rng.normal(size=(t, 2, b, 3 * h)) * 0.5).astype(np.float32)
+    h0 = (rng.normal(size=(2, b, h)) * 0.5).astype(np.float32)
+    w_hh = (rng.normal(size=(2, h, 3 * h)) * 0.1).astype(np.float32)
+    b_hh = (rng.normal(size=(2, 3 * h)) * 0.1).astype(np.float32)
+    d_outs = rng.normal(size=(t, 2, b, h)).astype(np.float32)
+    d_final = rng.normal(size=(2, b, h)).astype(np.float32)
+    _, vjp = jax.vjp(_gru_scan, *map(jnp.asarray, (xp, h0, w_hh, b_hh)))
+    want = vjp((jnp.asarray(d_outs), jnp.asarray(d_final)))
+
+    args = list(map(torch.from_numpy, (xp, h0, w_hh, b_hh)))
+    outs = gru_recurrence_plain(*args)
+    ct = torch.from_numpy(d_outs).clone()
+    ct[-1] += torch.from_numpy(d_final)
+    launches = gru_backward_loop.launches
+    got = gru_recurrence_backward(*args, outs, ct)
+    assert gru_backward_loop.launches == launches       # CPU: plain loop
+    for name, g, w in zip(("d_xp", "d_h0", "d_w_hh", "d_b_hh"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL_F32,
+                                   rtol=0, err_msg=name)
+
+
+def test_backward_loop_rejects_bad_inputs():
+    t, b, h = 3, 2, 8
+    xp = torch.zeros((t, 2, b, 3 * h))
+    hh, h_prev = torch.zeros((t, 2, b, 3 * h)), torch.zeros((t, 2, b, h))
+    w_hh, d_outs = torch.zeros((2, h, 3 * h)), torch.zeros((t, 2, b, h))
+    with pytest.raises(ValueError, match="hh"):
+        gru_backward_loop(xp, hh.double(), h_prev, w_hh, d_outs)
+    with pytest.raises(ValueError, match="d_outs"):
+        gru_backward_loop(xp, hh, h_prev, w_hh, d_outs[:-1])
+
+
+@pytest.mark.parametrize("H", [16, 48, 200, 300, MAX_HIDDEN])
+def test_cluster_plan_covers_hidden_units(H):
+    """The unit slices of a cluster's CTAs cover 0..H once, in order, and
+    both kernels' shared memory fits at every row count."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 3, 8, 16, 96, 97):
+            plan = cluster_plan(H, B, dtype)
+            units = [j for lo, hi in plan["slices"] for j in range(lo, hi)]
+            assert units == list(range(H))
+            assert max(plan["smem_forward"], plan["smem_backward"]) <= 232448
+            assert plan["clusters"] == 2 * -(-B // plan["rows"])
+            assert plan["mma"] == (dtype == torch.bfloat16)
+
+
+def test_cluster_plan_rejects_above_max_hidden():
+    assert MAX_HIDDEN >= 300        # every config of configs*/ fits
+    with pytest.raises(ValueError, match="does not fit"):
+        cluster_plan(MAX_HIDDEN + 1, 16, torch.float32)
