@@ -13,9 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    serving and train shapes, ragged hidden slices and row groups, fp32
    and bf16; B1's backward kernel against its plain loop; B1's autograd
    (kernel forward + kernel backward) against autograd through the plain
-   version at the train shapes; B2-B4 (the flash contrastive loss) at the
-   train step's N = 96 * 34 and TED-Gesture's 256 * 34, and at a ragged N,
-   D = 32 and 128;
+   version at the train shapes; B2-B4 (the flash contrastive loss) on
+   random rows at the train step's N = 96 * 34 and TED-Gesture's 256 * 34,
+   and at a ragged N, D = 32 and 128; on aligned rows against their plain
+   versions in float64 (tolerances that an fp32 product meets and a TF32
+   one does not); finite on rows with exact duplicates;
 3. serving: synthesis requests through make_synthesizer(...).generate and
    generate_fused on the full-width 6-level TED Expressive hierarchy
    (hidden 300, 4-layer bi-GRU, full SE-ResNet, bf16 compute, random
@@ -24,18 +26,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    the CPU (plain versions) for a short clip;
 4. training: HierarchySystem.train_step of the same hierarchy with
    configs_expressive/hierarchy.yaml (batch 96, bf16, every loss weight),
-   one warm-up step and four GAN steps on random batches: every loss term
-   finite, the launch counts of B1 (forward, backward calls and backward
-   kernel) and B2-B4 of every step against the dataflow's, step times and
-   peak memory; one GAN step under torch.profiler; then an fp32 step of a
-   narrow hierarchy on the card against the same port on the CPU, every
-   loss and gradient;
+   one warm-up step and four GAN steps on random batches, then of the
+   full-width 3-level TED Gesture hierarchy with configs/hierarchy.yaml
+   (batch 256: B2-B4 at N = 8704), one warm-up and two GAN steps: every
+   loss term finite, the launch counts of B1 (forward, backward calls and
+   backward kernel) and B2-B4 of every step against the dataflow's, step
+   times and peak memory; one GAN step of each under torch.profiler, with
+   B2-B4's share of its device time; then an fp32 step of a narrow
+   hierarchy on the card against the same port on the CPU, every loss and
+   gradient;
 5. times on the card: end-to-end ms per request and, under
    torch.profiler, where its device time goes and the device's idle
    share; each kernel (CUDA events, median), its bound, its plain
    version, and the library call that computes the same function where
    there is one; B1 forward at B = 1, 8, 16, 96 with its clusters'
-   occupancy; B1's backward kernel and whole backward call.
+   occupancy; B1's backward kernel and whole backward call; B2-B4's
+   device time a launch (profiler) and the epilogue's instructions a pair
+   in their SASS.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -78,6 +85,18 @@ B1_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # in another order; logz and diag relative to themselves, dA and dB
 # relative to the largest entry of the plain result
 B234_LOGZ_RTOL, B234_GRAD_REL = 1e-5, 1e-4
+# B2-B4 on aligned rows b = normalize(a + sigma n / sqrt(D)), D = 32,
+# against their plain versions run in float64, keyed by sigma: rows pulled
+# together as a trained contrastive loss sees them (s_ii ~ 0.96 / 0.995),
+# where the loss is ill-conditioned (a diag logit moves by ds / dist^3).
+# Set to tell a product in fp32 from one in TF32.  logz and diag, relative
+# entry by entry: 2x the error of the FFMA fp32 kernels this check was
+# first run on (4.9e-6 at 0.3, 4.6e-5 at 0.1, H100) and of cuBLAS's fp32
+# product; a single TF32 product is more than 100x off at 0.1 (emulated in
+# tests/test_torch_contrastive.py).  dA and dB relative to their largest
+# entry: 2x the FFMA kernels' 9.9e-6 / 6.6e-5.
+B234_ALIGNED_RTOL = {0.3: 1e-5, 0.1: 1e-4}
+B234_ALIGNED_GRAD_REL = {0.3: 2e-5, 0.1: 1.5e-4}
 # the narrow fp32 train step on the card against the port on the CPU:
 # summation order of cuDNN (TF32 off) and cuBLAS against the CPU's.  Loss
 # terms relative.  Gradients, relative L2 per leaf: the audio encoder's
@@ -90,7 +109,12 @@ TRAIN_GRAD_FLOOR = 1e-5
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TRAIN_STEPS = (False, True, True, True, True)   # gan_on of each step
+# the train runs: configuration file and the gan_on of each step (a
+# warm-up step, then GAN steps); TED Gesture's batch 256 gives B2-B4 their
+# largest shipped N = 256 * 34 = 8704
+TRAIN_RUNS = (("configs_expressive/hierarchy.yaml",
+               (False, True, True, True, True)),
+              ("configs/hierarchy.yaml", (False, True, True)))
 
 N_WORDS, N_SPEAKERS = 64, 8
 CLIP_SECONDS = 20.0
@@ -363,26 +387,55 @@ def _b234_inputs(N, D, seed=0):
     return a.cuda().contiguous(), b.cuda().contiguous()
 
 
+def _aligned_rows(N, D, sigma, seed=0):
+    """Unit rows a and b = normalize(a + sigma n / sqrt(D)): pairs pulled
+    together as a trained contrastive loss sees them (s_ii near 1)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.nn.functional.normalize(torch.randn((N, D), generator=g), dim=1)
+    n = torch.randn((N, D), generator=g)
+    b = torch.nn.functional.normalize(a + sigma * n / D ** 0.5, dim=1)
+    return a.cuda().contiguous(), b.cuda().contiguous()
+
+
+def _b234_kernels(a, b, g):
+    from ha2g_torch.ops import contrastive as C
+    logz, diag = C.contrastive_fwd(a, b)
+    da = C.contrastive_bwd_da(a, b, logz, g)
+    db = C.contrastive_bwd_db(a, b, logz, g)
+    torch.cuda.synchronize()
+    return logz, diag, da, db
+
+
+def _rel_max(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _rel_each(got, want) -> float:
+    """Largest |got - want| / |want|, entry by entry."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / want.abs()).max().item()
+
+
 def _b234_check():
+    """B2-B4 against their plain versions: random unit rows (fp32 plain
+    version), aligned rows (float64 plain version) and rows with exact
+    duplicates (finite)."""
     from ha2g_torch.ops import contrastive as C
     errs = {}
     for N, D in ((3264, 32), (8704, 32), (1000, 32), (1000, 128)):
         a, b = _b234_inputs(N, D, seed=N + D)
-        logz, diag = C.contrastive_fwd(a, b)
-        p_logz, p_diag = C.contrastive_fwd_plain(a, b)
         g = torch.full((1,), 0.7 / N, device="cuda")
-        da = C.contrastive_bwd_da(a, b, logz, g)
-        db = C.contrastive_bwd_db(a, b, logz, g)
+        logz, diag, da, db = _b234_kernels(a, b, g)
+        p_logz, p_diag = C.contrastive_fwd_plain(a, b)
         p_da = C.contrastive_bwd_da_plain(a, b, logz, g[0])
         p_db = C.contrastive_bwd_db_plain(a, b, logz, g[0])
-        torch.cuda.synchronize()
-        e_fwd = max(((logz - p_logz).abs() / p_logz.abs()).max().item(),
-                    ((diag - p_diag).abs() / p_diag.abs()).max().item())
-        e_da = ((da - p_da).abs().max() / p_da.abs().max()).item()
-        e_db = ((db - p_db).abs().max() / p_db.abs().max()).item()
+        e_fwd = max(_rel_each(logz, p_logz), _rel_each(diag, p_diag))
+        e_da, e_db = _rel_max(da, p_da), _rel_max(db, p_db)
         ok = (all(torch.isfinite(t).all().item() for t in (logz, diag, da, db))
               and e_fwd <= B234_LOGZ_RTOL and max(e_da, e_db) <= B234_GRAD_REL)
-        _line("b234-check", N=N, D=D, ragged=N % 64 != 0,
+        _line("b234-check", rows="random", N=N, D=D, ragged=N % 64 != 0,
               b2_rel_err=f"{e_fwd:.2e}", b3_rel_err=f"{e_da:.2e}",
               b4_rel_err=f"{e_db:.2e}",
               tol=f"{B234_LOGZ_RTOL:.0e}/{B234_GRAD_REL:.0e}", ok=ok)
@@ -394,15 +447,81 @@ def _b234_check():
                       (diag - p_diag).abs().max().item()),
             "b3": (da - p_da).abs().max().item(),
             "b4": (db - p_db).abs().max().item()}
+    # aligned rows against float64: tells an fp32 product from a TF32 one
+    for N in (3264, 1000):
+        for sigma in (0.3, 0.1):
+            a, b = _aligned_rows(N, 32, sigma, seed=N)
+            g = torch.full((1,), 0.7 / N, device="cuda")
+            got = _b234_kernels(a, b, g)
+            a64, b64 = a.double(), b.double()
+            w_logz, w_diag = C.contrastive_fwd_plain(a64, b64)
+            want = (w_logz, w_diag,
+                    C.contrastive_bwd_da_plain(a64, b64, w_logz, g[0].double()),
+                    C.contrastive_bwd_db_plain(a64, b64, w_logz, g[0].double()))
+            p_logz, p_diag = C.contrastive_fwd_plain(a, b)
+            e_logz, e_diag = (_rel_each(got[i], want[i]) for i in (0, 1))
+            e = [max(e_logz, e_diag), _rel_max(got[2], want[2]),
+                 _rel_max(got[3], want[3])]
+            e_plain = max(_rel_each(p_logz, w_logz), _rel_each(p_diag, w_diag))
+            tol = (B234_ALIGNED_RTOL[sigma], B234_ALIGNED_GRAD_REL[sigma])
+            ok = (all(torch.isfinite(t).all().item() for t in got)
+                  and e[0] <= tol[0] and max(e[1:]) <= tol[1])
+            s_ii = (a * b).sum(1)
+            _line("b234-check", rows=f"aligned_sigma_{sigma}", N=N, D=32,
+                  mean_s_ii=f"{s_ii.mean().item():.4f}",
+                  max_diag_logit=f"{w_diag.max().item():.1f}",
+                  b2_logz_rel_err=f"{e_logz:.2e}",
+                  b2_diag_rel_err=f"{e_diag:.2e}", b3_rel_err=f"{e[1]:.2e}",
+                  b4_rel_err=f"{e[2]:.2e}",
+                  plain_fp32_b2_rel_err=f"{e_plain:.2e}",
+                  tol=f"{tol[0]:.0e}/{tol[1]:.0e}", ok=ok)
+            if not ok:
+                raise AssertionError(f"B2-B4 disagree with float64 on aligned "
+                                     f"rows, sigma={sigma} N={N}")
+            errs[(N, sigma)] = e
+    # exact duplicates: diagonal logits at ~1e6, where B3 or B4 rounding s
+    # otherwise than B2 overflows exp(logit - logz)
+    a, b = _b234_inputs(3264, 32, seed=11)
+    b[:5] = a[:5]
+    got = _b234_kernels(a, b, torch.full((1,), 0.7 / 3264, device="cuda"))
+    ok = all(torch.isfinite(t).all().item() for t in got)
+    _line("b234-check", rows="duplicates_5", N=3264, D=32,
+          max_diag_logit=f"{got[1].max().item():.1f}", finite=ok, ok=ok)
+    if not ok:
+        raise AssertionError("B2-B4 are not finite on duplicate rows")
     return errs
 
 
+def _kernel_device_ms(fn, pattern, n=20):
+    """Median device time of one launch of the kernel whose name holds
+    ``pattern``, over ``n`` calls of fn under torch.profiler.  (A kernel
+    shorter than its wrapper's host work cannot be timed with CUDA events
+    around back-to-back calls: the card would wait on the host.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and pattern in e.name]
+    # the profiler may miss the first launches of its window
+    if len(times) < n // 2:
+        raise AssertionError(f"profiled {len(times)} launches of {pattern} "
+                             f"of {n}")
+    return statistics.median(times)
+
+
 def _b234_times(N, D=32):
-    """ms of B2, B3, B4 and of their plain versions, with each one's bound:
-    bytes = one read of every input and one write of every output;
-    operations ~ (2D + 12) per pair (i, j) for B2 (the product, clamps,
-    sqrt, reciprocal, exp) and ~ (4D + 16) for B3 and B4 (the product
-    again, ds, and ds times the other operand)."""
+    """Device ms of one launch of B2, B3, B4 (profiler), the wrapper
+    call's ms back to back (CUDA events) and their plain versions' ms,
+    with each one's bound: bytes = one read of every input and one write
+    of every output; operations ~ (2D + 12) per pair (i, j) for B2 (the
+    product, clamps, sqrt, reciprocal, exp) and ~ (4D + 16) for B3 and B4
+    (the product again, ds, and ds times the other operand)."""
     from ha2g_torch.ops import contrastive as C
     a, b = _b234_inputs(N, D, seed=5)
     logz, _ = C.contrastive_fwd(a, b)
@@ -420,15 +539,82 @@ def _b234_times(N, D=32):
     }
     out = {}
     for k, (fn, plain, n_bytes, flops) in runs.items():
-        ms = _event_ms(fn, inner=10)
+        ms = _kernel_device_ms(fn, KERNEL_PATTERNS[k])
+        call_ms = _event_ms(fn, inner=10)
         plain_ms = _event_ms(plain, inner=2)
         bound_ms, bound_by = _bound(n_bytes, flops, torch.float32)
-        _line(f"{k}-time", N=N, D=D, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, bytes=n_bytes,
-              flops=flops, library_ms="none",
-              library_note="no single PyTorch call computes this loss")
-        out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by}
+        _line(f"{k}-time", N=N, D=D, ms=f"{ms:.4f}", call_ms=f"{call_ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, bytes=n_bytes, flops=flops,
+              library_ms="none",
+              library_note="no single PyTorch call computes this loss",
+              splits=C.splits(("b2", "b3", "b4").index(k), N, D,
+                              a.device.index))
+        out[k] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+# SASS opcodes of the epilogue's arithmetic: fp32 ALU and MUFU (sqrt, rcp,
+# exp); the product is HMMA
+EPILOGUE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FRND",
+                "MUFU")
+
+
+def _sass_reckoning(n_values=(3264, 8704)):
+    """The epilogue's instructions a pair, counted in the SASS of the
+    built contrastive library (cuobjdump -sass).  Every pair's logit takes
+    one MUFU.RSQ (its sqrt), and the compiler may keep more than one copy
+    of the tile's code (the ragged edge), so a kernel's instructions over
+    its MUFU.RSQ count are its instructions a pair: the fp32 / MUFU ones
+    and all of them (these include the product's adds, staging and
+    indexing).  Each gives a time bound: pairs x count / 32 lanes at 4 warp
+    instructions a clock an SM, 132 SMs, the card's largest SM clock.
+    Returns {kernel: fp32 / MUFU instructions a pair}."""
+    import re
+    import shutil
+    from ha2g_torch import kernels
+    from ha2g_torch.ops import contrastive as C
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(kernels.library_path(
+            C.SOURCE))], capture_output=True, text=True, check=True).stdout
+        clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+    except (OSError, subprocess.CalledProcessError, ValueError) as err:
+        _line("b234-sass", epilogue="not measured", reason=repr(err)[:80])
+        return {}
+    rate = 132 * 4 * clock_mhz * 1e6   # warp instructions a second
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        label = next((lab for key, lab in (
+            ("contrastive_fwd_kernel", "b2"),
+            ("contrastive_bwd_kernelILb0E", "b3"),
+            ("contrastive_bwd_kernelILb1E", "b4")) if key in
+            part.split("\n", 1)[0]), None)
+        if label is None:
+            continue
+        ops = {}
+        for ln in part.splitlines():
+            tokens = ln.split("*/", 1)[-1].split() if ";" in ln else []
+            if tokens and tokens[0].startswith("@"):   # a predicate
+                tokens = tokens[1:]
+            if tokens:
+                op = tokens[0].split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+        rsq = part.count("MUFU.RSQ")
+        fp32 = sum(ops.get(o, 0) for o in EPILOGUE_OPS) / rsq
+        every = sum(ops.values()) / rsq
+        bounds = {f"instr_bound_ms_N{n}_fp32_all":
+                  f"{n * n * fp32 / 32 / rate * 1e3:.4f}/"
+                  f"{n * n * every / 32 / rate * 1e3:.4f}" for n in n_values}
+        _line("b234-sass", kernel=label, instructions=sum(ops.values()),
+              hmma=ops.get("HMMA", 0), mufu_rsq=rsq,
+              fp32_per_pair=f"{fp32:.1f}", all_per_pair=f"{every:.1f}",
+              sm_clock_mhz=clock_mhz, **bounds)
+        out[label] = fp32
     return out
 
 
@@ -443,7 +629,9 @@ KERNEL_PATTERNS = {"b1": "gru_recurrence_kernel",
 def _profile(name, fn, e2e_ms, kernels=("b1",)):
     """One call under torch.profiler: the device time of every kernel in
     it, the port's kernels among them, and the device's idle share of the
-    call's unprofiled median wall time."""
+    call's unprofiled median wall time.  Returns {kernel: (launches, device
+    ms)} for ``kernels`` and the device-busy ms, or None if the profiler saw
+    no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -463,12 +651,13 @@ def _profile(name, fn, e2e_ms, kernels=("b1",)):
         return
     busy = sum(ms for ms, _ in per_name.values())
     fields = {}
-    counts = {}
+    seen = {}
     for k in kernels:
         ms, n = (sum(v[i] for key, v in per_name.items()
                      if KERNEL_PATTERNS[k] in key) for i in (0, 1))
         fields[f"{k}_device_ms"] = f"{ms:.2f}"
-        fields[f"{k}_kernels"] = counts[k] = n
+        fields[f"{k}_kernels"] = n
+        seen[k] = (n, ms)
     _line("profile", request=name, e2e_ms=f"{e2e_ms:.2f}",
           device_busy_ms=f"{busy:.2f}",
           idle_share=f"{1 - busy / e2e_ms:.3f}",
@@ -477,7 +666,7 @@ def _profile(name, fn, e2e_ms, kernels=("b1",)):
     for k, (ms, n) in top:
         _line("profile-top", request=name, ms=f"{ms:.2f}", count=n,
               kernel=k[:90].replace(" ", "_"))
-    return counts
+    return seen, busy
 
 
 # ---------------------------------------------------------------------------
@@ -659,30 +848,33 @@ def _expected_counts(cfg, gan_on):
             "b4": 2}
 
 
-def _train():
-    """Train steps of the full-width TED Expressive hierarchy with its own
-    configuration file: launch counts, finite losses, times, memory and a
-    profile.  Returns the kernels' launch counts over the steps."""
+def _train(config, steps):
+    """Train steps of a full-width hierarchy with its own configuration
+    file (``config``, relative to the checkout; ``steps`` the gan_on of
+    each): launch counts, finite losses, times, memory and a profile of one
+    GAN step with B2-B4's share of its device time.  Returns the kernels'
+    launch counts over the steps."""
     from ha2g_torch.config import Config
     from ha2g_torch.train.hierarchy import HierarchySystem
 
-    cfg = Config.from_yaml(ROOT / "configs_expressive" / "hierarchy.yaml")
+    cfg = Config.from_yaml(ROOT / config)
     B = cfg.batch_size
     t0 = time.perf_counter()
     system = HierarchySystem(cfg, N_WORDS, N_SPEAKERS,
                              generator=torch.Generator().manual_seed(0))
-    _line("train-build", seconds=f"{time.perf_counter() - t0:.1f}",
+    _line("train-build", config=config,
+          seconds=f"{time.perf_counter() - t0:.1f}",
           params=sum(p.numel() for p in system.parameters()), batch=B,
-          compute_dtype=cfg.compute_dtype, levels=cfg.skeleton.n_levels,
-          hidden=cfg.hidden_size, gru_layers=cfg.n_layers)
+          contrastive_N=B * cfg.n_poses, compute_dtype=cfg.compute_dtype,
+          levels=cfg.skeleton.n_levels, hidden=cfg.hidden_size,
+          gru_layers=cfg.n_layers)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    batches = [_train_batch(cfg, B, 100 + i) for i in range(len(TRAIN_STEPS))]
+    batches = [_train_batch(cfg, B, 100 + i) for i in range(len(steps))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    totals = dict.fromkeys(_read_counts(), 0)
     step_ms = []
     _reset_counts()
-    for i, (gan_on, batch) in enumerate(zip(TRAIN_STEPS, batches)):
+    for i, (gan_on, batch) in enumerate(zip(steps, batches)):
         before = _read_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -694,32 +886,40 @@ def _train():
         values = {k: float(v) for k, v in metrics.items()}
         finite = all(np.isfinite(v) for v in values.values())
         ok = finite and counts == want
-        _line("train-step", step=i, gan_on=gan_on, ms=f"{ms:.1f}",
-              finite=finite, **{k: f"{v:.4f}" for k, v in values.items()})
-        _line("train-launches", step=i,
+        _line("train-step", config=config, step=i, gan_on=gan_on,
+              ms=f"{ms:.1f}", finite=finite,
+              **{k: f"{v:.4f}" for k, v in values.items()})
+        _line("train-launches", config=config, step=i,
               **{k: f"{counts[k]}/{want[k]}" for k in want}, ok=ok)
         if not ok:
-            raise AssertionError(f"train step {i} (gan_on={gan_on}) failed "
-                                 "its checks")
+            raise AssertionError(f"{config} train step {i} (gan_on="
+                                 f"{gan_on}) failed its checks")
         step_ms.append(ms)
     main_path = _read_counts()
-    if main_path != {k: sum(_expected_counts(cfg, g)[k] for g in TRAIN_STEPS)
+    if main_path != {k: sum(_expected_counts(cfg, g)[k] for g in steps)
                      for k in main_path}:
         raise AssertionError("kernel launches outside the counted steps")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gan_ms = statistics.median(step_ms[2:])
-    _line("train-e2e", warmup_step_ms=f"{step_ms[0]:.1f}",
-          gan_step_ms_median_of_3=f"{gan_ms:.1f}",
+    _line("train-e2e", config=config, warmup_step_ms=f"{step_ms[0]:.1f}",
+          gan_step_ms_median=f"{gan_ms:.1f}", gan_steps=len(step_ms) - 2,
           samples_per_s=f"{B / gan_ms * 1e3:.1f}",
           peak_memory_gib=f"{peak:.2f}")
-    seen = _profile("train_gan_step", lambda: system.train_step(
-        _train_batch(cfg, B, 200), True, gen), gan_ms,
-        kernels=("b1", "b1_bwd", "b2", "b3", "b4"))
+    kernels = ("b1", "b1_bwd", "b2", "b3", "b4")
+    profiled = _profile(f"train_gan_step:{config}", lambda: system.train_step(
+        _train_batch(cfg, B, 200), True, gen), gan_ms, kernels=kernels)
     want = _expected_counts(cfg, True)
-    if seen is not None and (seen["b1"], seen["b1_bwd"]) != (want["b1"],
-                                                             want["b1_bwd"]):
-        raise AssertionError(f"the GAN step's profile shows {seen} B1 "
-                             f"kernels, the dataflow {want}")
+    if profiled is not None:
+        seen, busy = profiled
+        if any(seen[k][0] != want[k] for k in kernels):
+            raise AssertionError(f"the GAN step's profile shows {seen} "
+                                 f"kernels, the dataflow {want}")
+        b234_ms = sum(seen[k][1] for k in ("b2", "b3", "b4"))
+        _line("train-b234-share", config=config, N=B * cfg.n_poses,
+              **{f"{k}_device_ms": f"{seen[k][1]:.3f}"
+                 for k in ("b2", "b3", "b4")},
+              b234_device_ms=f"{b234_ms:.3f}", device_busy_ms=f"{busy:.2f}",
+              share=f"{b234_ms / busy:.4f}")
     del system
     torch.cuda.empty_cache()
     return main_path
@@ -824,8 +1024,9 @@ def main() -> int:
     if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
         raise AssertionError("training kernels launched while serving")
 
-    # phase 4: the training path
-    training = _train()
+    # phase 4: the training path, each run read on its own
+    runs = {config: _train(config, steps) for config, steps in TRAIN_RUNS}
+    training = {k: sum(r[k] for r in runs.values()) for k in serving}
     _train_card_vs_cpu()
 
     # phase 5: kernel times at the serving and train shapes
@@ -843,9 +1044,11 @@ def main() -> int:
     bwd = {dtype: _b1_backward_times(dtype)
            for dtype in (torch.bfloat16, torch.float32)}
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
+    _sass_reckoning()
 
     print(smi, flush=True)
-    by_path = lambda k: {"serving": serving[k], "training": training[k]}
+    by_path = lambda k: {"serving": serving[k], **{
+        f"training:{config}": run[k] for config, run in runs.items()}}
     entries = [{
         "name": "gru_recurrence", "route": "cuda",
         "source": "ha2g_torch/csrc/gru_recurrence.cu",
@@ -879,7 +1082,9 @@ def main() -> int:
             "max_abs_err": b234_errs[(3264, 32)][k],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "call_ms": t["call_ms"],
+            "ms_N8704": b234[8704][k]["ms"],
+            "bound_ms_N8704": b234[8704][k]["bound_ms"]})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

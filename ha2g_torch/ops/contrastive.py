@@ -12,6 +12,12 @@ On CUDA tensors it runs the hand-written kernels of
 * B3 ``contrastive_bwd_da``: dA = ds . b;  B4 ``contrastive_bwd_db``:
   dB = ds^T . a, with ds recomputed tile by tile from a, b, logz and g/N.
 
+The kernels compute s = a.b^T on the tensor cores in 3xTF32 and split the
+columns over ``splits(...)`` blocks a row tile; each call allocates the
+blocks' partial results (B2: 3 S N floats, B3 / B4: S N D) and hands the
+kernel a per-stream buffer of arrival counters that the kernels leave
+zeroed (see the source's header).
+
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
 version (``*_plain``), which materialises the (N, N) logits, and counts
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -31,19 +38,71 @@ from ha2g_torch import kernels
 SOURCE = kernels.CSRC / "contrastive.cu"
 MAX_DIM = 512
 EPS = 1e-8
+TILE = 64            # rows a block owns, and rows of a column tile
+FEATURE_CHUNK = 32   # output features a B3 / B4 block computes
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = kernels.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ha2g_contrastive_fwd.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    lib.ha2g_contrastive_splits.argtypes = [i32] * 3
+    lib.ha2g_contrastive_check_math.argtypes = [ctypes.c_uint] * 2 + [i32]
+    lib.ha2g_contrastive_check_math.restype = ctypes.c_longlong
+    lib.ha2g_contrastive_fwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     for name in ("ha2g_contrastive_bwd_da", "ha2g_contrastive_bwd_db"):
-        getattr(lib, name).argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
-    for name in ("ha2g_contrastive_fwd", "ha2g_contrastive_bwd_da",
-                 "ha2g_contrastive_bwd_db"):
+        getattr(lib, name).argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+    for name in ("ha2g_contrastive_splits", "ha2g_contrastive_fwd",
+                 "ha2g_contrastive_bwd_da", "ha2g_contrastive_bwd_db"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def splits(which: int, N: int, D: int, device_index: int) -> int:
+    """The column splits S of kernel ``which`` (0: B2, 1: B3, 2: B4) at
+    (N, D), from the kernel's occupancy on the device: the S that
+    minimises waves x (tiles a split + 1), at most 16 (see the source)."""
+    with torch.cuda.device(device_index):
+        S = _lib().ha2g_contrastive_splits(which, N, D)
+    if S < 1:
+        raise RuntimeError(f"contrastive kernel {which}: no split plan at "
+                           f"N={N} D={D}")
+    return S
+
+
+def _f32_bits(x: float) -> int:
+    return struct.unpack("<I", struct.pack("<f", x))[0]
+
+
+def math_mismatches() -> dict[str, int]:
+    """The kernels' branch-free sqrt and reciprocal against IEEE sqrtf and
+    1.0f / x on the current CUDA device, over every float that the logits
+    can give them: sqrt of [1e-12, 4.01], reciprocal of [1e-6, 2.01].
+    Returns the number of inputs where they differ (0 expected)."""
+    lib = _lib()
+    out = {"sqrt": lib.ha2g_contrastive_check_math(
+               _f32_bits(1e-12), _f32_bits(4.01), 0),
+           "rcp": lib.ha2g_contrastive_check_math(
+               _f32_bits(1e-6), _f32_bits(2.01), 1)}
+    if min(out.values()) < 0:
+        raise RuntimeError("the contrastive math check failed to run")
+    return out
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The arrival counters of one stream, n int32 zeros at least.  The
+    kernels leave them zeroed, so one buffer serves every call that the
+    stream orders after it."""
+    key = (device.index, _stream_of(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _on_card(name: str, *tensors) -> bool:
@@ -78,8 +137,24 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _rows_for_kernel(*tensors):
+    """The kernels stage 16-byte pieces of rows: pad D to a multiple of 4
+    with zero features (which add exactly 0 to every s) and give every
+    tensor a 16-byte aligned start."""
+    D = tensors[0].shape[1]
+    pad = -D % 4
+    out = []
+    for t in tensors:
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -123,18 +198,24 @@ def contrastive_fwd(a, b):
     N, D = _check(a, b)
     if not _on_card("contrastive_fwd", a, b):
         return contrastive_fwd_plain(a, b)
-    logz = torch.empty(N, dtype=torch.float32, device=a.device)
+    dev = a.device
+    a, b = _rows_for_kernel(a, b)
+    D4 = a.shape[1]
+    S = splits(0, N, D4, dev.index)
+    logz = torch.empty(N, dtype=torch.float32, device=dev)
     diag = torch.empty_like(logz)
-    with torch.cuda.device(a.device):
-        err = _lib().ha2g_contrastive_fwd(a.data_ptr(), b.data_ptr(),
-                                          logz.data_ptr(), diag.data_ptr(),
-                                          N, D, _stream(a))
+    part = torch.empty(3 * S * N, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        counters = _counters(dev, -(-N // TILE))
+        err = _lib().ha2g_contrastive_fwd(
+            a.data_ptr(), b.data_ptr(), logz.data_ptr(), diag.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), N, D4, S, _stream_of(dev))
     _raise_on(err, "contrastive_fwd")
     contrastive_fwd.launches += 1
     return logz, diag
 
 
-def _bwd(wrapper, a, b, logz, g_over_n, plain):
+def _bwd(wrapper, which, a, b, logz, g_over_n, plain):
     name = wrapper.__name__
     N, D = _check(a, b)
     if tuple(logz.shape) != (N,) or g_over_n.numel() != 1:
@@ -143,26 +224,33 @@ def _bwd(wrapper, a, b, logz, g_over_n, plain):
                          f"{tuple(g_over_n.shape)}")
     if not _on_card(name, a, b, logz, g_over_n):
         return plain(a, b, logz, g_over_n.reshape(()))
-    out = torch.empty((N, D), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
+    dev = a.device
+    a, b = _rows_for_kernel(a, b)
+    D4 = a.shape[1]
+    S = splits(which, N, D4, dev.index)
+    out = torch.empty((N, D4), dtype=torch.float32, device=dev)
+    part = torch.empty((S, N, D4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        counters = _counters(dev, -(-N // TILE) * -(-D4 // FEATURE_CHUNK))
         err = getattr(_lib(), f"ha2g_{name}")(
             a.data_ptr(), b.data_ptr(), logz.data_ptr(), g_over_n.data_ptr(),
-            out.data_ptr(), N, D, _stream(a))
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), N, D4, S,
+            _stream_of(dev))
     _raise_on(err, name)
     wrapper.launches += 1
-    return out
+    return out[:, :D] if D4 != D else out
 
 
 def contrastive_bwd_da(a, b, logz, g_over_n):
     """B3: dA (N, D); ``g_over_n`` is the loss's cotangent over the global
     N, one float32 value on the tensors' device."""
-    return _bwd(contrastive_bwd_da, a, b, logz, g_over_n,
+    return _bwd(contrastive_bwd_da, 1, a, b, logz, g_over_n,
                 contrastive_bwd_da_plain)
 
 
 def contrastive_bwd_db(a, b, logz, g_over_n):
     """B4: dB (N, D); arguments as for B3."""
-    return _bwd(contrastive_bwd_db, a, b, logz, g_over_n,
+    return _bwd(contrastive_bwd_db, 2, a, b, logz, g_over_n,
                 contrastive_bwd_db_plain)
 
 

@@ -15,6 +15,7 @@ import torch
 from ha2g_tpu.ops import pallas_contrastive as pc
 from ha2g_tpu.train import losses as jax_losses
 from ha2g_torch.ops import contrastive as C
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 D = 32
 # fp32 on both sides: the (N, N) logits' logsumexp and the two (N, N) x
@@ -104,6 +105,50 @@ def test_wrappers_check_their_arguments():
     logz, _ = C.contrastive_fwd(a, b)
     with pytest.raises(ValueError, match="logz"):
         C.contrastive_bwd_da(a, b, logz[:3], torch.ones(1))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero (the kernels' cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _fwd_from_s(s):
+    logits, _ = C._logits(s)
+    return torch.logsumexp(logits, dim=1), torch.diagonal(logits)
+
+
+# the card's aligned-row tolerance on logz and diag at sigma = 0.1
+# (chip_smoke.py B234_ALIGNED_RTOL): 2x the fp32 product's error
+ALIGNED_RTOL = 1e-4
+
+
+def test_three_tf32_products_keep_the_aligned_row_tolerance():
+    """Why the kernels split their operands (s = hi.hi + hi.lo + lo.hi):
+    on aligned rows b = normalize(a + 0.1 n / sqrt(D)) (s_ii ~ 0.995, as a
+    trained contrastive loss sees them) one TF32 product puts logz and
+    diag more than 1e-2 off float64, 3xTF32 stays within fp32's error."""
+    rng = np.random.default_rng(0)
+    n = 1024
+    a = rng.normal(size=(n, D))
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b = a + 0.1 * rng.normal(size=(n, D)) / D ** 0.5
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    a, b = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
+    want = _fwd_from_s(a.double() @ b.double().T)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    # the products of TF32 values are exact in fp32; the sums are fp32
+    products = {"fp32": a @ b.T, "1xTF32": a_hi @ b_hi.T,
+                "3xTF32": a_hi @ b_hi.T + (a_hi @ b_lo.T + a_lo @ b_hi.T)}
+    err = {}
+    for name, s in products.items():
+        got = _fwd_from_s(s)
+        err[name] = max(((g.double() - w).abs() / w.abs()).max().item()
+                        for g, w in zip(got, want))
+    assert err["fp32"] <= ALIGNED_RTOL, err
+    assert err["3xTF32"] <= ALIGNED_RTOL, err
+    assert err["1xTF32"] > 100 * ALIGNED_RTOL, err
 
 
 def test_tensors_off_the_cpu_never_take_the_plain_version():

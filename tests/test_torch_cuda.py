@@ -139,18 +139,38 @@ def test_kernel_autograd_matches_plain_autograd(cuda, dtype, T, B, H):
         assert ((got - want).norm() / want.norm()).item() <= tol
 
 
-@pytest.mark.parametrize("N,D", [(3264, 32), (1000, 32), (1000, 128),
-                                 (97, 40)])
-def test_contrastive_kernels_match_plain(cuda, N, D):
-    """B2-B4 on random unit rows, ragged N included: sums of N terms in
-    another order."""
+def _aligned(N, D, sigma, seed):
+    """Unit rows a and b = normalize(a + sigma n / sqrt(D)) (s_ii near 1)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.nn.functional.normalize(torch.randn((N, D), generator=g), dim=1)
+    b = a + sigma * torch.randn((N, D), generator=g) / D ** 0.5
+    return a, torch.nn.functional.normalize(b, dim=1)
+
+
+# aligned rows against float64 (chip_smoke.py B234_ALIGNED_*): logz and
+# diag relative entry by entry, dA and dB relative to their largest entry;
+# 2x an fp32 product's error, far below a single TF32 product's
+ALIGNED_TOL = {0.3: (1e-5, 2e-5), 0.1: (1e-4, 1.5e-4)}
+
+
+@pytest.mark.parametrize("N,D,sigma", [(3264, 32, None), (1000, 32, None),
+                                       (1000, 128, None), (97, 40, None),
+                                       (3264, 32, 0.3), (3264, 32, 0.1),
+                                       (1000, 32, 0.3), (1000, 32, 0.1)])
+def test_contrastive_kernels_match_plain(cuda, N, D, sigma):
+    """B2-B4 on random unit rows, ragged N included, against their plain
+    versions (sums of N terms in another order); on aligned rows against
+    the plain versions in float64."""
     g = torch.Generator().manual_seed(N)
-    a, b = (torch.nn.functional.normalize(torch.randn((N, D), generator=g),
-                                          dim=1).to(cuda) for _ in range(2))
+    if sigma is None:
+        a, b = (torch.nn.functional.normalize(
+            torch.randn((N, D), generator=g), dim=1) for _ in range(2))
+    else:
+        a, b = _aligned(N, D, sigma, seed=N)
+    a, b = a.to(cuda), b.to(cuda)
     counts = (C.contrastive_fwd.launches, C.contrastive_bwd_da.launches,
               C.contrastive_bwd_db.launches)
     logz, diag = C.contrastive_fwd(a, b)
-    p_logz, p_diag = C.contrastive_fwd_plain(a, b)
     gn = torch.full((1,), 0.3 / N, device=cuda)
     da, db = (fn(a, b, logz, gn) for fn in (C.contrastive_bwd_da,
                                             C.contrastive_bwd_db))
@@ -158,12 +178,46 @@ def test_contrastive_kernels_match_plain(cuda, N, D):
     # CUDA tensors reached the three kernels, once each
     assert (C.contrastive_fwd.launches, C.contrastive_bwd_da.launches,
             C.contrastive_bwd_db.launches) == tuple(c + 1 for c in counts)
-    torch.testing.assert_close(logz, p_logz, rtol=1e-5, atol=0)
-    torch.testing.assert_close(diag, p_diag, rtol=1e-5, atol=0)
+    if sigma is None:
+        ref, ref_logz, (rtol, grad_rel) = (a, b), logz, (1e-5, 1e-4)
+    else:
+        ref = (a.double(), b.double())
+        rtol, grad_rel = ALIGNED_TOL[sigma]
+    p_logz, p_diag = C.contrastive_fwd_plain(*ref)
+    if sigma is not None:
+        ref_logz = p_logz
+    torch.testing.assert_close(logz.double(), p_logz.double(), rtol=rtol,
+                               atol=0)
+    torch.testing.assert_close(diag.double(), p_diag.double(), rtol=rtol,
+                               atol=0)
     for got, plain in ((da, C.contrastive_bwd_da_plain),
                        (db, C.contrastive_bwd_db_plain)):
-        want = plain(a, b, logz, gn[0])
-        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        want = plain(*ref, ref_logz, gn[0].to(ref[0].dtype)).double()
+        assert (got.double() - want).abs().max() <= grad_rel * want.abs().max()
+
+
+def test_contrastive_kernels_finite_on_duplicate_rows(cuda):
+    """Rows of b that repeat rows of a: their diagonal logits reach ~1e6,
+    where B3 or B4 rounding s otherwise than B2 would overflow
+    exp(logit - logz).  The kernels share one s function."""
+    g = torch.Generator().manual_seed(5)
+    a, b = (torch.nn.functional.normalize(torch.randn((3264, 32), generator=g),
+                                          dim=1).to(cuda) for _ in range(2))
+    b[:5] = a[:5]
+    logz, diag = C.contrastive_fwd(a, b)
+    gn = torch.full((1,), 1.0 / 3264, device=cuda)
+    da = C.contrastive_bwd_da(a, b, logz, gn)
+    db = C.contrastive_bwd_db(a, b, logz, gn)
+    torch.cuda.synchronize()
+    assert diag.max().item() > 1e5
+    for t in (logz, diag, da, db):
+        assert torch.isfinite(t).all()
+
+
+def test_contrastive_branch_free_math_is_ieee(cuda):
+    """The kernels' sqrt and reciprocal equal sqrtf and 1.0f / x on every
+    float the logits can give them."""
+    assert C.math_mismatches() == {"sqrt": 0, "rcp": 0}
 
 
 def test_flash_contrastive_gradient_on_the_card(cuda):

@@ -24,6 +24,7 @@ from ha2g_torch.ops.gru_kernel import (MAX_HIDDEN, cluster_plan,
                                        gru_backward_loop, gru_recurrence,
                                        gru_recurrence_backward,
                                        gru_recurrence_plain)
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 T, B, H = 7, 4, 16
 # fp32: summation order of the h.w_hh products (and, backward, of the

@@ -7,6 +7,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ha2g_tpu"}

@@ -12,6 +12,7 @@ from ha2g_tpu import skeleton as jax_skeleton
 from ha2g_tpu.train import losses as J
 from ha2g_torch import skeleton
 from ha2g_torch.train import losses as P
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 # fp32 elementwise math and means over a few hundred terms: rounding only
 RTOL, ATOL = 1e-5, 1e-7

@@ -9,6 +9,7 @@ import torch
 
 from ha2g_tpu.ops import mel as jmel
 from ha2g_torch.ops import mel as tmel
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 # fp32 matrix products on both sides, summed in different orders; the dB
 # scale magnifies relative error most in the quietest bins

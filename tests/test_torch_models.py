@@ -17,6 +17,7 @@ from ha2g_torch import convert
 from ha2g_torch.models.hierarchy import (HierarchicalPoseGenerator,
                                          HierarchicalWavEncoder)
 from ha2g_torch.models.tcn import TextEncoderTCN
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 N_WORDS, N_SPK, T, HID = 20, 4, 34, 24
 # fp32 on both sides; summation order of convs and matmuls only

@@ -11,6 +11,7 @@ from ha2g_tpu.train.cascade import build_pre_seq as jax_build_pre_seq
 from ha2g_torch import skeleton as tsk
 from ha2g_torch.config import Config
 from ha2g_torch.train.cascade import build_pre_seq
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 CASES = [(name, compat) for name in ("ted_gesture", "ted_expressive")
          for compat in (False, True)]

@@ -26,6 +26,7 @@ from ha2g_torch.convert import hierarchy_state
 from ha2g_torch.data.vocab import Vocab
 from ha2g_torch.synthesis import make_synthesizer
 from ha2g_torch.train.hierarchy import HierarchySystem
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 N_WORDS, N_SPK, T = 16, 4, 34
 # fp32 on both sides; the differences are summation order in the convs,

@@ -24,6 +24,7 @@ from ha2g_torch.config import Config, read_flat_yaml
 from ha2g_torch.models.common import BatchNorm, dropout
 from ha2g_torch.models.hierarchy import ConvDiscriminator
 from ha2g_torch.models.tcn import TextEncoderTCN
+import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 # fp32 on both sides: summation order, and flax's one-pass batch variance
