@@ -1,0 +1,128 @@
+"""Checkpoints (the port of ha2g_tpu/checkpoint.py).
+
+A checkpoint is a directory:
+
+  state.pt      ``torch.save`` of {"model": the system's state dict,
+                "g_opt" / "d_opt": both Adam optimisers' state dicts
+                (unless ``save_optimizer_state`` is off), "step": train
+                steps taken}; every tensor on the CPU;
+  config.json   {"config": the Config, "extra": epoch, val metrics ...},
+                the JAX package's layout;
+  lang_vocab.json / speaker_vocab.json   the vocabularies, in the JAX
+                package's schema;
+  word_vectors.npy   the word-embedding table, when there is one.
+
+``load_state`` reads ``state.pt`` with ``weights_only=True`` into a freshly
+built system with strict keys, and restores parameters, batch-norm
+statistics and Adam moments exactly.  An FGD embedder is saved the same
+way by ``save_embedder`` (model only, with a config whose model is
+``gesture_autoencoder``), and read by ``load_embedder``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ha2g_torch.config import Config
+from ha2g_torch.data.vocab import Vocab
+
+STATE = "state.pt"
+
+
+def _cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def _write_meta(path: Path, cfg: Config, extra: Optional[dict]) -> None:
+    meta = {"config": cfg.to_dict(), "extra": extra or {}}
+    (path / "config.json").write_text(json.dumps(meta, default=float))
+
+
+def save_checkpoint(path, system, cfg: Config, lang: Optional[Vocab] = None,
+                    speaker: Optional[Vocab] = None,
+                    extra: Optional[dict] = None, step: int = 0) -> None:
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    state: dict[str, Any] = {"model": _cpu(system.state_dict()),
+                             "step": int(step)}
+    if cfg.save_optimizer_state:
+        state["g_opt"] = _cpu(system.g_opt.state_dict())
+        state["d_opt"] = _cpu(system.d_opt.state_dict())
+    torch.save(state, path / STATE)
+    _write_meta(path, cfg, extra)
+    if lang is not None:
+        lang.save(path / "lang_vocab.json")
+        if lang.word_embedding_weights is not None:
+            np.save(path / "word_vectors.npy", lang.word_embedding_weights)
+    if speaker is not None:
+        speaker.save(path / "speaker_vocab.json")
+
+
+def read_state(path) -> dict[str, Any]:
+    return torch.load(Path(path) / STATE, map_location="cpu",
+                      weights_only=True)
+
+
+def load_state(path, system, optimizers: bool = True) -> int:
+    """Restore a checkpoint into ``system`` (strict keys) and, with
+    ``optimizers``, both Adam optimisers.  Returns the step count."""
+    state = read_state(path)
+    system.load_state_dict(state["model"], strict=True)
+    if optimizers:
+        if "g_opt" not in state:
+            raise ValueError(f"{path} holds no optimiser state "
+                             "(saved with save_optimizer_state off)")
+        system.g_opt.load_state_dict(state["g_opt"])
+        system.d_opt.load_state_dict(state["d_opt"])
+    return int(state["step"])
+
+
+def load_config(path) -> tuple[Config, dict]:
+    meta = json.loads((Path(path) / "config.json").read_text())
+    return Config.from_dict(meta["config"]), meta.get("extra", {})
+
+
+def load_vocabs(path) -> tuple[Optional[Vocab], Optional[Vocab]]:
+    path = Path(path)
+    lang = speaker = None
+    if (path / "lang_vocab.json").exists():
+        lang = Vocab.load(path / "lang_vocab.json")
+        if (path / "word_vectors.npy").exists():
+            lang.word_embedding_weights = np.load(path / "word_vectors.npy")
+    if (path / "speaker_vocab.json").exists():
+        speaker = Vocab.load(path / "speaker_vocab.json")
+    return lang, speaker
+
+
+def save_embedder(path, net: torch.nn.Module, cfg: Config) -> None:
+    """An FGD embedder (EmbeddingNet in pose mode or MotionAE) as a
+    checkpoint that ``eval_net_path`` can name: its state dict, and a
+    config with model ``gesture_autoencoder``, its pose_dim, n_poses and
+    latent_dim."""
+    if cfg.model != "gesture_autoencoder":
+        raise ValueError(f"an embedder's config has model "
+                         f"'gesture_autoencoder', not {cfg.model!r}")
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": _cpu(net.state_dict()), "step": 0}, path / STATE)
+    _write_meta(path, cfg, None)
+
+
+def load_embedder(path) -> tuple[Config, dict[str, torch.Tensor]]:
+    """-> (the embedder's Config, its state dict)."""
+    cfg, _ = load_config(path)
+    if cfg.model != "gesture_autoencoder":
+        raise ValueError(f"{path} is a {cfg.model!r} checkpoint, not an "
+                         "embedder")
+    return cfg, read_state(path)["model"]

@@ -1,0 +1,237 @@
+"""Command line of the port (modelled on ha2g_tpu/cli.py):
+
+  python -m ha2g_torch.cli train --config configs_expressive/hierarchy.yaml
+      [--field value ...] [--resume CHECKPOINT] [--device cuda|cpu]
+  python -m ha2g_torch.cli eval CHECKPOINT [--clips DIR] [--bc]
+  python -m ha2g_torch.cli synthesize CHECKPOINT [--clips DIR] [--n N]
+      [--out FILE] [--fused]
+
+Data paths in a config are a clip-storage directory (data/storage.py) or
+"synthetic" / "none" / empty, a built-in synthetic set; any other path
+that does not exist raises, as does a named ``wordembed_path``.
+``eval_net_path`` names an FGD embedder saved by
+``checkpoint.save_embedder``; without one the trainer selects checkpoints
+by the validation loss.  Everything runs on CUDA unless ``--device cpu``
+is given; without CUDA and without it, the commands raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+def _device(value: str):
+    from ha2g_torch.device import resolve_device
+    try:
+        return resolve_device(value)
+    except RuntimeError as err:
+        raise RuntimeError(f"{err} (on the command line: --device cpu)") \
+            from None
+
+
+def _pop(argv: list[str], flag: str, default=None):
+    """Remove ``flag value`` from argv; -> (value or default, argv)."""
+    if flag not in argv:
+        return default, argv
+    i = argv.index(flag)
+    return argv[i + 1], argv[:i] + argv[i + 2:]
+
+
+def set_logger(log_path=None, name: str = "log") -> None:
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if log_path is not None:
+        Path(log_path).mkdir(parents=True, exist_ok=True)
+        handlers.append(logging.FileHandler(Path(log_path) / f"{name}.log"))
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s: %(message)s",
+                        handlers=handlers, force=True)
+
+
+SYNTHETIC_PATHS = ("", "synthetic", "none")
+
+
+def _load_split(path: Optional[str], cfg, seed: int):
+    """The clips of a clip-storage directory, or, for a path in
+    ``SYNTHETIC_PATHS``, a built-in synthetic set; a named directory that
+    does not exist raises."""
+    from ha2g_torch.data.storage import load_clips
+    from ha2g_torch.data.synthetic import synthetic_clips
+    if (path or "") not in SYNTHETIC_PATHS:
+        if not Path(path).exists():
+            raise FileNotFoundError(f"no clip set at {path!r} (for the "
+                                    "built-in synthetic clips: 'synthetic')")
+        return load_clips(path)
+    n = {0: 24, 1: 8, 2: 8}[seed % 3]
+    return synthetic_clips(cfg.skeleton, n_clips=n, clip_seconds=8.0,
+                           n_speakers=6, seed=seed)
+
+
+def _prepare(cfg, lang=None, speaker=None):
+    """Load the train and eval clips, build the vocabularies (or take the
+    given ones, a checkpoint's), window the clips into samples.
+    -> (cfg, lang, speaker, train samples, val samples)."""
+    from ha2g_torch.data.dataset import window_clips
+    from ha2g_torch.data.synthetic import default_mean_dir_vec
+    from ha2g_torch.data.vocab import Vocab, build_vocab
+
+    train_clips = _load_split(cfg.train_data_path, cfg, 0)
+    # the reference validates on the test split (train.py:652-724)
+    val_clips = _load_split(cfg.test_data_path or cfg.val_data_path, cfg, 1)
+    if lang is None:
+        lang = build_vocab("words", [train_clips, val_clips])
+        if cfg.wordembed_path:     # a missing file raises
+            lang.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
+        else:
+            lang.random_word_vectors(cfg.wordembed_dim)
+    if speaker is None:
+        speaker = Vocab("vid", insert_default_tokens=False)
+        for c in train_clips + val_clips:
+            speaker.index_word(c["vid"])
+
+    if cfg.mean_dir_vec is not None:
+        mean_vec = cfg.mean_dir_vec_array
+    else:
+        mean_vec = default_mean_dir_vec(cfg.skeleton)
+        cfg = cfg.replace(mean_dir_vec=[float(v) for v in mean_vec])
+    mean_pose = cfg.mean_pose_array if cfg.mean_pose is not None else \
+        np.zeros(cfg.skeleton.n_joints * 3, np.float32)
+    static = (6, 7) if cfg.dataset == "ted_expressive" else (6, 9)
+    kw = dict(spec=cfg.skeleton, lang=lang, speaker=speaker,
+              mean_pose=mean_pose, mean_dir_vec=mean_vec,
+              n_poses=cfg.n_poses, subdivision_stride=cfg.subdivision_stride,
+              fps=cfg.motion_resampling_framerate, static_joints=static)
+    train_samples = window_clips(train_clips, **kw)
+    val_samples = window_clips(val_clips, **kw)
+    logging.info(f"train samples: {len(train_samples)}, val: "
+                 f"{len(val_samples)}, vocab: {lang.n_words} words, "
+                 f"{speaker.n_words} speakers")
+    return cfg, lang, speaker, train_samples, val_samples
+
+
+def make_evaluator(cfg, device):
+    """The frozen FGD embedder that ``eval_net_path`` names, or None."""
+    from ha2g_torch.checkpoint import load_embedder
+    from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator
+    if not cfg.eval_net_path or not Path(cfg.eval_net_path).exists():
+        logging.info("no FGD embedder at eval_net_path %r: checkpoints are "
+                     "selected by the validation loss", cfg.eval_net_path)
+        return None
+    ev_cfg, state = load_embedder(cfg.eval_net_path)
+    return EmbeddingSpaceEvaluator(ev_cfg.pose_dim, ev_cfg.n_poses, state,
+                                   latent_dim=ev_cfg.latent_dim,
+                                   device=device)
+
+
+def cmd_train(argv: list[str]) -> int:
+    from ha2g_torch.config import parse_cli
+    from ha2g_torch.train.loop import Trainer
+
+    device, argv = _pop(argv, "--device", "cuda")
+    resume, argv = _pop(argv, "--resume")
+    device = _device(device)
+    cfg = parse_cli(argv)
+    set_logger(cfg.model_save_path, cfg.name)
+    logging.info(f"config: {cfg}")
+    cfg, lang, speaker, train_s, val_s = _prepare(cfg)
+    trainer = Trainer(cfg, train_s, val_s, lang, speaker,
+                      make_evaluator(cfg, device), device=device)
+    trainer.fit(resume_from=resume)
+    logging.info(f"best: {trainer.best_values}")
+    return 0
+
+
+def load_checkpoint_system(checkpoint: str, device):
+    """-> (cfg, lang, speaker, system) with the checkpoint's parameters."""
+    from ha2g_torch import checkpoint as ckpt
+    from ha2g_torch.train.loop import build_system
+    cfg, _ = ckpt.load_config(checkpoint)
+    lang, speaker = ckpt.load_vocabs(checkpoint)
+    system = build_system(cfg, lang.n_words, max(speaker.n_words, 1),
+                          device=device)
+    ckpt.load_state(checkpoint, system, optimizers=False)
+    return cfg, lang, speaker, system
+
+
+def cmd_eval(argv: list[str]) -> int:
+    """Validation metrics of a checkpoint on a clip set (reference
+    synthesize.py eval mode); prints them as a dict."""
+    from ha2g_torch.checkpoint import load_config, load_state, load_vocabs
+    from ha2g_torch.train.loop import Trainer
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli eval")
+    p.add_argument("checkpoint")
+    p.add_argument("--clips", default="synthetic")
+    p.add_argument("--bc", action="store_true",
+                   help="also compute beat consistency")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    cfg, _ = load_config(a.checkpoint)
+    lang, speaker = load_vocabs(a.checkpoint)
+    # only the given clips are read, not the checkpoint's training set
+    cfg, lang, speaker, _, val_s = _prepare(
+        cfg.replace(train_data_path=a.clips, test_data_path=a.clips), lang,
+        speaker)
+    trainer = Trainer(cfg, val_s, val_s, lang, speaker,
+                      make_evaluator(cfg, device),
+                      beat_consistency_score=a.bc, device=device)
+    load_state(a.checkpoint, trainer.system, optimizers=False)
+    metrics = trainer.evaluate(0)
+    print({k: round(float(v), 5) for k, v in metrics.items()})
+    return 0
+
+
+def cmd_synthesize(argv: list[str]) -> int:
+    """Synthesis from a checkpoint on the first ``--n`` clips of a clip set
+    (reference synthesize_hierarchy.py from_db_clip); writes dir_vec and
+    audio to ``--out``."""
+    from ha2g_torch.synthesis import make_synthesizer
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli synthesize")
+    p.add_argument("checkpoint")
+    p.add_argument("--clips", default="synthetic")
+    p.add_argument("--n", type=int, default=4)
+    p.add_argument("--out", default="synthesis_out.npz")
+    p.add_argument("--fused", action="store_true",
+                   help="the audio encoder once over all windows")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    cfg, lang, speaker, system = load_checkpoint_system(a.checkpoint, device)
+    clips = _load_split(a.clips, cfg, 2)[:a.n]
+    synth = make_synthesizer(system, system.state_dict())
+    n_samples = min(len(c["audio_raw"]) for c in clips)
+    audio = np.stack([np.asarray(c["audio_raw"][:n_samples], np.float32)
+                      for c in clips])
+    words = [c["words"] for c in clips]
+    vids = np.asarray([speaker.get_word_index(c["vid"]) for c in clips],
+                      np.int64)
+    run = synth.generate_fused if a.fused else synth.generate
+    out = run(audio, words, lang, vids)
+    np.savez(a.out, dir_vec=out, audio=audio)
+    print(f"wrote {a.out}: {out.shape}")
+    return 0
+
+
+COMMANDS = {"train": cmd_train, "eval": cmd_eval,
+            "synthesize": cmd_synthesize}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in COMMANDS:
+        print(f"usage: python -m ha2g_torch.cli {{{'|'.join(COMMANDS)}}} ...",
+              file=sys.stderr)
+        return 1
+    return COMMANDS[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,22 @@
-"""The subset of the hierarchy configuration that serving and the train
-step read.
+"""The subset of the configuration that serving, the train step, the
+trainer and the command line read.
 
 Field names and defaults follow the JAX package's ``Config`` so that a
 config dict (for example one embedded in a checkpoint) loads through
 ``from_dict``, and a YAML file of the repository's ``configs*/`` through
-``from_yaml``; unknown keys are ignored.
+``from_yaml``; unknown keys are ignored.  ``parse_cli`` reads
+``--config FILE`` and lets any ``--field value`` override it, as the JAX
+package's does.
 """
 
 from __future__ import annotations
 
+import argparse
 import ast
 import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -26,10 +29,20 @@ class Config:
     model: str = "hierarchy"
     dataset: str = "ted_gesture"  # ted_gesture | ted_expressive
 
+    # data paths: a clip-storage directory, or "synthetic" / "none" / empty
+    train_data_path: str = ""
+    val_data_path: str = ""
+    test_data_path: str = ""
+    model_save_path: str = "output"
+    mean_pose: Optional[list[float]] = None
+    random_seed: int = -1
+
+    wordembed_path: Optional[str] = None
     wordembed_dim: int = 300
     freeze_wordembed: bool = False
     mean_dir_vec: Optional[list[float]] = None
 
+    epochs: int = 10
     batch_size: int = 50
     dropout_prob: float = 0.3
     n_layers: int = 4
@@ -40,7 +53,9 @@ class Config:
     motion_resampling_framerate: int = 15
     n_poses: int = 34
     n_pre_poses: int = 4
+    subdivision_stride: int = 10
     pose_dim: int = 27
+    latent_dim: int = 128
 
     # training
     learning_rate: float = 5e-4
@@ -53,6 +68,12 @@ class Config:
     loss_contrastive_pos_weight: float = 0.2
     loss_contrastive_neg_weight: float = 0.005
     loss_physical_weight: float = 0.01
+
+    # the frozen FGD embedder: a checkpoint directory (checkpoint.py
+    # save_embedder) whose config has model "gesture_autoencoder"
+    eval_net_path: str = ""
+    # keep both optimisers' state in checkpoints (needed to resume)
+    save_optimizer_state: bool = True
 
     compute_dtype: str = "float32"  # float32 | bfloat16
     # reproduce the reference's off-by-one expressive pre-seq head fill, for
@@ -70,6 +91,18 @@ class Config:
             return np.zeros(self.pose_dim, dtype=np.float32)
         return np.asarray(self.mean_dir_vec, dtype=np.float32).reshape(-1)
 
+    @property
+    def mean_pose_array(self) -> np.ndarray:
+        if self.mean_pose is None:
+            return np.zeros(self.pose_dim + 3, dtype=np.float32)
+        return np.asarray(self.mean_pose, dtype=np.float32).reshape(-1)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
         known = {f.name for f in dataclasses.fields(cls)}
@@ -80,6 +113,31 @@ class Config:
         d = read_flat_yaml(path)
         d.update(overrides)
         return cls.from_dict(d)
+
+
+def _truthy(v: str) -> bool:
+    return v.lower() in ("1", "true", "yes", "t", "y")
+
+
+def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
+    """``-c/--config FILE`` and any ``--field value`` overrides of it
+    (other arguments are ignored)."""
+    parser = argparse.ArgumentParser(description="ha2g_torch")
+    parser.add_argument("-c", "--config", required=True)
+    known, rest = parser.parse_known_args(argv)
+    cfg = Config.from_yaml(known.config)
+    over = argparse.ArgumentParser()
+    for f in dataclasses.fields(Config):
+        if f.type == "bool":
+            over.add_argument(f"--{f.name}", type=_truthy)
+        elif f.type == "Optional[list[float]]":
+            over.add_argument(f"--{f.name}", type=float, nargs="*")
+        else:
+            over.add_argument(f"--{f.name}", type={
+                "int": int, "float": float}.get(f.type, str))
+    ns, _ = over.parse_known_args(rest)
+    return cfg.replace(**{k: v for k, v in vars(ns).items()
+                          if v is not None})
 
 
 def _scalar(text: str):

@@ -12,7 +12,14 @@ use.  Every conversion is a layout change only (so a tree of JAX
 * direction-stacked GRU params (2, in, 3H) -> per-direction
   ``weight_ih_l{l}`` / ``weight_ih_l{l}_reverse`` (3H, in);
 * weight-norm v (k, in, out) -> ``weight_v`` (out, in, k), g -> (out, 1, 1);
-* batch norm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+* batch norm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* transposed-conv kernels (k, in, out) -> (in, out, k) with the spatial
+  axis reversed (flax's ConvTranspose does not flip its kernel, torch's
+  ConvTranspose1d does).
+
+The FGD embedders convert the same way: ``embedding_net_pose_state`` (TED
+Gesture's EmbeddingNet in pose mode) and ``motion_ae_state`` (TED
+Expressive's MotionAE).
 """
 
 from __future__ import annotations
@@ -59,6 +66,12 @@ def _gru(p: dict, sd: dict, prefix: str, n_layers: int) -> None:
             sd[f"{prefix}.weight_hh{s}"] = _t(np.asarray(p[f"w_hh_l{layer}"])[d].T)
             sd[f"{prefix}.bias_ih{s}"] = _t(np.asarray(p[f"b_ih_l{layer}"])[d])
             sd[f"{prefix}.bias_hh{s}"] = _t(np.asarray(p[f"b_hh_l{layer}"])[d])
+
+
+def _conv_transpose(p: dict, sd: dict, key: str) -> None:
+    w = np.asarray(p["kernel"])[::-1].transpose(1, 2, 0)
+    sd[f"{key}.weight"] = _t(w)
+    sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _weightnorm_conv(p: dict, sd: dict, key: str) -> None:
@@ -167,4 +180,63 @@ def hierarchy_state(params: dict, batch_stats: dict,
                text_encoder_state(params["text"], n_layers).items()})
     sd.update({f"dis.{k}": v for k, v in discriminator_state(
         params["dis"], batch_stats["dis"]).items()})
+    return sd
+
+
+def _conv_norm_relu(p: dict, s: dict, sd: dict, key: str) -> None:
+    _conv(p["Conv1d_0"]["Conv_0"], sd, f"{key}.0")
+    _bn(p["BatchNorm_0"], s["BatchNorm_0"], sd, f"{key}.1")
+
+
+def _pose_encoder(p: dict, s: dict, sd: dict, prefix: str) -> None:
+    """PoseEncoderConv / MotionEncoderConv -> the reference's
+    PoseEncoderConv keys (embedding_net.py:42-82)."""
+    for i in range(3):
+        _conv_norm_relu(p[f"ConvNormRelu1d_{i}"], s[f"ConvNormRelu1d_{i}"],
+                        sd, f"{prefix}.net.{i}")
+    _conv(p["Conv1d_0"]["Conv_0"], sd, f"{prefix}.net.3")
+    _dense(p["Dense_0"], sd, f"{prefix}.out_net.0")
+    _bn(p["BatchNorm_0"], s["BatchNorm_0"], sd, f"{prefix}.out_net.1")
+    _dense(p["Dense_1"], sd, f"{prefix}.out_net.3")
+    _bn(p["BatchNorm_1"], s["BatchNorm_1"], sd, f"{prefix}.out_net.4")
+    _dense(p["Dense_2"], sd, f"{prefix}.out_net.6")
+    if "Dense_3" in p:
+        _dense(p["Dense_3"], sd, f"{prefix}.fc_mu")
+        _dense(p["Dense_4"], sd, f"{prefix}.fc_logvar")
+
+
+def _pose_decoder(p: dict, s: dict, sd: dict, prefix: str) -> None:
+    """PoseDecoderConv / MotionDecoderConv -> the reference's
+    PoseDecoderConv keys (embedding_net.py:165-217)."""
+    _dense(p["Dense_0"], sd, f"{prefix}.pre_net.0")
+    _bn(p["BatchNorm_0"], s["BatchNorm_0"], sd, f"{prefix}.pre_net.1")
+    _dense(p["Dense_1"], sd, f"{prefix}.pre_net.3")
+    _conv_transpose(p["ConvTranspose_0"], sd, f"{prefix}.net.0")
+    _bn(p["BatchNorm_1"], s["BatchNorm_1"], sd, f"{prefix}.net.1")
+    _conv_transpose(p["ConvTranspose_1"], sd, f"{prefix}.net.3")
+    _bn(p["BatchNorm_2"], s["BatchNorm_2"], sd, f"{prefix}.net.4")
+    _conv(p["Conv1d_0"]["Conv_0"], sd, f"{prefix}.net.6")
+    _conv(p["Conv1d_1"]["Conv_0"], sd, f"{prefix}.net.7")
+
+
+def embedding_net_pose_state(params: dict, batch_stats: dict
+                             ) -> dict[str, Any]:
+    """EmbeddingNet(mode="pose") params + batch stats -> the reference's
+    gen_dict keys (``pose_encoder.*``, ``decoder.*``)."""
+    sd: dict[str, Any] = {}
+    _pose_encoder(params["PoseEncoderConv_0"],
+                  batch_stats["PoseEncoderConv_0"], sd, "pose_encoder")
+    _pose_decoder(params["PoseDecoderConv_0"],
+                  batch_stats["PoseDecoderConv_0"], sd, "decoder")
+    return sd
+
+
+def motion_ae_state(params: dict, batch_stats: dict) -> dict[str, Any]:
+    """MotionAE params + batch stats -> the reference's motion_ae keys
+    (``encoder.*``, ``decoder.*``)."""
+    sd: dict[str, Any] = {}
+    _pose_encoder(params["MotionEncoderConv_0"],
+                  batch_stats["MotionEncoderConv_0"], sd, "encoder")
+    _pose_decoder(params["MotionDecoderConv_0"],
+                  batch_stats["MotionDecoderConv_0"], sd, "decoder")
     return sd

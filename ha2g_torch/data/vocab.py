@@ -1,7 +1,20 @@
-"""Word vocabulary: the part of the JAX package's ``Vocab`` that synthesis
-uses (index lookup with the PAD/SOS/EOS/UNK specials)."""
+"""Word and speaker vocabularies (the port of ha2g_tpu/data/vocab.py,
+reference scripts/model/vocab.py and scripts/utils/vocab_utils.py).
+
+A ``Vocab`` maps words to indices with the PAD/SOS/EOS/UNK specials, or
+without them as the speaker table, and may carry an embedding table.  It
+is saved as JSON in the JAX package's schema, so the two packages read each
+other's vocabulary files; the table goes beside it as ``.npy``.
+"""
 
 from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
 
 PAD_TOKEN = 0
 SOS_TOKEN = 1
@@ -9,14 +22,29 @@ EOS_TOKEN = 2
 UNK_TOKEN = 3
 
 
+def normalize_string(s: str) -> str:
+    """Lower-case, trim, and drop non-letter characters
+    (reference data_utils.py:18-25)."""
+    s = s.lower().strip()
+    s = re.sub(r"([,.!?])", r" \1 ", s)
+    s = re.sub(r"(['])", r"", s)
+    s = re.sub(r"[^a-zA-Z,.!?]+", r" ", s)
+    return re.sub(r"\s+", r" ", s).strip()
+
+
 class Vocab:
     """Word <-> index mapping; unknown words map to UNK."""
 
     def __init__(self, name: str, insert_default_tokens: bool = True):
         self.name = name
+        self.insert_default_tokens = insert_default_tokens
+        self.word_embedding_weights: Optional[np.ndarray] = None
+        self.reset_dictionary()
+
+    def reset_dictionary(self):
         self.word2index: dict[str, int] = {}
         self.word2count: dict[str, int] = {}
-        if insert_default_tokens:
+        if self.insert_default_tokens:
             self.index2word = {PAD_TOKEN: "<PAD>", SOS_TOKEN: "<SOS>",
                                EOS_TOKEN: "<EOS>", UNK_TOKEN: "<UNK>"}
         else:
@@ -38,3 +66,71 @@ class Vocab:
 
     def get_word_index(self, word: str) -> int:
         return self.word2index.get(word, UNK_TOKEN)
+
+    # ---- embedding table ---------------------------------------------------
+    def load_word_vectors_npy(self, path, embed_dim: int = 300):
+        """A (n_words, embed_dim) table aligned to this vocabulary."""
+        weights = np.load(path).astype(np.float32)
+        if weights.shape != (self.n_words, embed_dim):
+            raise ValueError(f"{path} holds a {weights.shape} table; the "
+                             f"vocabulary needs ({self.n_words}, {embed_dim})")
+        self.word_embedding_weights = weights
+
+    def load_word_vectors(self, path, embed_dim: int = 300):
+        """A pre-aligned ``.npy`` table.  fastText ``.bin`` / ``.vec`` files
+        are not read by the port yet: align them to the vocabulary with the
+        JAX package's ``cli import-embeddings`` first."""
+        path = Path(path)
+        if path.suffix != ".npy":
+            raise NotImplementedError(
+                f"{path}: the port reads aligned .npy word vectors only; "
+                "fastText .bin / .vec reading comes with its data path")
+        self.load_word_vectors_npy(path, embed_dim)
+
+    def random_word_vectors(self, embed_dim: int = 300, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.word_embedding_weights = rng.normal(
+            size=(self.n_words, embed_dim)).astype(np.float32)
+
+    # ---- serialisation -----------------------------------------------------
+    def to_dict(self) -> dict:
+        return {"name": self.name,
+                "insert_default_tokens": self.insert_default_tokens,
+                "n_words": self.n_words,
+                "index2word": {str(k): v for k, v in self.index2word.items()},
+                "word2count": self.word2count}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Vocab":
+        v = cls(d["name"], d["insert_default_tokens"])
+        counts = d.get("word2count", {})
+        for idx, word in sorted((int(k), w) for k, w in d["index2word"].items()):
+            if v.index2word.get(idx) == word and word not in counts:
+                continue  # a special placed by reset_dictionary
+            v.word2index[word] = idx
+            v.index2word[idx] = word
+            v.word2count[word] = int(counts.get(word, 1))
+            v.n_words = max(v.n_words, idx + 1)
+        # without the specials, <UNK> sits at index 3 while words start at
+        # 1 (the reference's layout), so the recorded count is restored
+        if "n_words" in d:
+            v.n_words = int(d["n_words"])
+        return v
+
+    def save(self, path):
+        Path(path).write_text(json.dumps(self.to_dict()))
+
+    @classmethod
+    def load(cls, path) -> "Vocab":
+        return cls.from_dict(json.loads(Path(path).read_text()))
+
+
+def build_vocab(name: str, clip_sets, insert_default_tokens: bool = True
+                ) -> Vocab:
+    """Every word of every clip, in clip order (vocab_utils.py:11-35)."""
+    vocab = Vocab(name, insert_default_tokens)
+    for clips in clip_sets:
+        for clip in clips:
+            for word, _, _ in clip["words"]:
+                vocab.index_word(word)
+    return vocab

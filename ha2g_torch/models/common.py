@@ -4,7 +4,8 @@ Layers keep float32 parameters and take the compute dtype as an argument,
 casting weights at use.  Initialization follows torch defaults and is
 drawn from an explicit ``torch.Generator`` by ``init_parameters_``:
 
-* Linear/Conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in));
+* Linear/Conv/ConvTranspose weights and biases U(-1/sqrt(fan_in),
+  1/sqrt(fan_in)), fan_in as torch reckons it;
 * GRU weights and biases U(-1/sqrt(H), 1/sqrt(H));
 * embeddings N(0, 1);
 * layers marked ``init = "kaiming_normal_fan_out"`` (the SE-ResNet convs)
@@ -116,7 +117,10 @@ def init_parameters_(root: nn.Module, generator: torch.Generator) -> None:
     g = generator
     for m in root.modules():
         mode = getattr(m, "init", None)
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                          nn.ConvTranspose1d)):
+            # a transposed conv's weight is (in, out, k); torch takes its
+            # fan-in from out * k all the same
             fan_in = m.weight[0].numel()
             if mode == "kaiming_normal_fan_out":
                 fan_out = m.weight.shape[0] * m.weight[0, 0].numel()

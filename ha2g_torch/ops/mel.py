@@ -96,6 +96,22 @@ def _bases(device: torch.device):
     return basis.to(device), fb.to(device)
 
 
+def log_mel_np(y: np.ndarray, n_fft: int = N_FFT, hop: int = HOP,
+               n_mels: int = N_MELS) -> np.ndarray:
+    """One clip's log-mel (n_mels, n_frames) in numpy, float64 FFT: the
+    windowing pipeline's spectrogram of a clip that has none stored."""
+    yp = np.pad(y.astype(np.float64), (n_fft // 2, n_fft // 2), mode="reflect")
+    n_frames = 1 + (len(yp) - n_fft) // hop
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
+    frames = np.stack([yp[i * hop: i * hop + n_fft] * window
+                       for i in range(n_frames)])
+    spec = np.abs(np.fft.rfft(frames, axis=-1)) ** 2
+    mel = spec @ mel_filterbank(SR, n_fft, n_mels).astype(np.float64)
+    log_spec = 10.0 * np.log10(np.maximum(mel, 1e-10))
+    log_spec -= log_spec.max()
+    return np.maximum(log_spec, -80.0).T
+
+
 def mulaw_decode(u8: torch.Tensor) -> torch.Tensor:
     """uint8 G.711 mu-law bytes -> float32 waveform in [-1, 1]."""
     y = u8.to(torch.float32) * (2.0 / _MULAW_MU) - 1.0

@@ -5,7 +5,8 @@ The port's own copy of the bone trees and level lists of the TED Gesture
 Per-level target extraction and the inter-level pre-seq routing are
 derived from the nested level bone lists.  The physical angle prior's
 tables and ``extended_dir_vecs`` serve the train step's physical loss.
-Forward kinematics is not ported yet.
+Forward kinematics is one product with a static (n_bones, n_joints) path
+matrix; its inverse takes each bone's child minus its parent joint.
 """
 
 from __future__ import annotations
@@ -63,6 +64,10 @@ class SkeletonSpec:
         return len(self.bones)
 
     @property
+    def n_joints(self) -> int:
+        return 1 + max(max(p, c) for p, c, _ in self.bones)
+
+    @property
     def pose_dim(self) -> int:
         """Flattened direction-vector dim."""
         return self.n_bones * 3
@@ -84,6 +89,52 @@ class SkeletonSpec:
                 raise ValueError(f"level {k} bones must nest into level {k + 1}")
         if tuple(self.levels[-1]) != tuple(range(self.n_bones)):
             raise ValueError("finest level must cover all bones")
+
+    # ---- kinematics ------------------------------------------------------
+    @functools.cached_property
+    def path_matrix(self) -> np.ndarray:
+        """(n_bones, n_joints) float32: entry [b, j] = length_b if bone b
+        lies on the root -> j chain, so FK is one product."""
+        m = np.zeros((self.n_bones, self.n_joints), dtype=np.float32)
+        for b, (parent, child, length) in enumerate(self.bones):
+            m[:, child] = m[:, parent]
+            m[b, child] = length
+        return m
+
+    @functools.cached_property
+    def parents(self) -> np.ndarray:
+        return np.array([p for p, _, _ in self.bones], dtype=np.int64)
+
+    @functools.cached_property
+    def children(self) -> np.ndarray:
+        return np.array([c for _, c, _ in self.bones], dtype=np.int64)
+
+    @functools.cached_property
+    def lengths(self) -> np.ndarray:
+        return np.array([ln for _, _, ln in self.bones], dtype=np.float32)
+
+    def dir_vec_to_pose(self, vec: torch.Tensor) -> torch.Tensor:
+        """Forward kinematics: (..., n_bones*3) or (..., n_bones, 3) unit
+        direction vectors -> joint positions (..., n_joints, 3)
+        (reference convert_dir_vec_to_pose)."""
+        if vec.shape[-1] != 3 or vec.shape[-2] != self.n_bones:
+            vec = vec.reshape(*vec.shape[:-1], self.n_bones, 3)
+        pm = torch.as_tensor(self.path_matrix, device=vec.device,
+                             dtype=vec.dtype)
+        return torch.einsum("...bd,bj->...jd", vec, pm)
+
+    def pose_to_dir_vec(self, pose: torch.Tensor,
+                        eps: float = 1e-12) -> torch.Tensor:
+        """Inverse: joint positions (..., n_joints, 3) (or flattened) ->
+        unit direction vectors (..., n_bones, 3); a zero vector stays zero
+        (reference convert_pose_seq_to_dir_vec)."""
+        if pose.shape[-1] != 3 or pose.shape[-2] != self.n_joints:
+            pose = pose.reshape(*pose.shape[:-1], self.n_joints, 3)
+        child = torch.as_tensor(self.children, device=pose.device)
+        parent = torch.as_tensor(self.parents, device=pose.device)
+        d = pose.index_select(-2, child) - pose.index_select(-2, parent)
+        norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        return torch.where(norm > eps, d / torch.clamp(norm, min=eps), d)
 
     def level_slice_cols(self, level: int) -> np.ndarray:
         """Flat feature indices selecting level ``level``'s bones from the
@@ -284,3 +335,12 @@ REF_COMPAT_SKELETONS: dict[str, SkeletonSpec] = {
            if s.ref_tail_fill_bones else s)
     for name, s in SKELETONS.items()
 }
+
+
+def skeleton_for_pose_dim(pose_dim: int) -> SkeletonSpec:
+    """The skeleton whose direction vectors have ``pose_dim`` values (27:
+    TED Gesture, 126: TED Expressive)."""
+    for s in SKELETONS.values():
+        if s.pose_dim == pose_dim:
+            return s
+    raise ValueError(f"no skeleton with pose_dim={pose_dim}")

@@ -1,0 +1,256 @@
+"""The epoch training driver (the port of ha2g_tpu/train/loop.py;
+reference train.py:91-324 and evaluate_testset, train.py:326-508).
+
+* Each epoch evaluates first, then trains.  Evaluation draws speaker ids
+  from ``np.random.default_rng(epoch)`` (speaker z) and gives eval batch i
+  a CPU generator seeded ``seed + 10_000 + i``, so an evaluation is the
+  same on every device.
+* Per-key best tracking: ``frechet`` picks ``checkpoint_best`` when an
+  FGD evaluator is present, else ``loss``; ``diversity`` is maximised,
+  every other key minimised.  ``checkpoint_{epoch:03d}`` every 10 epochs
+  and ``checkpoint_final`` at the end; every evaluation is a row of
+  ``history.jsonl``.
+* GAN steps run when ``epoch > loss_warmup``.
+* The train steps' metrics are summed on the device and read once at the
+  end of an epoch, so no step waits on a host read.
+* One ``torch.Generator`` on the device, seeded from ``random_seed``,
+  drives the train steps' randomness.
+
+Only the hierarchy family is ported; a single device (multi-device is
+ROADMAP A.6).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ha2g_torch.checkpoint import load_config, load_state, save_checkpoint
+from ha2g_torch.config import Config
+from ha2g_torch.data.loader import BatchLoader
+from ha2g_torch.data.vocab import Vocab
+from ha2g_torch.device import resolve_device
+from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator
+from ha2g_torch.eval.metrics import beat_consistency, maje_and_accel
+from ha2g_torch.models.tcn import TextEncoderTCN
+from ha2g_torch.utils.average_meter import AverageMeter
+
+BASELINE_FAMILIES = ("multimodal_context", "seq2seq", "speech2gesture",
+                     "joint_embedding", "gesture_autoencoder")
+
+
+def build_system(cfg: Config, n_words: int, n_speakers: int,
+                 word_embeddings=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+    """The training system of ``cfg.model`` (reference init_model,
+    train.py:50-88).  A word-embedding table, when given, initialises every
+    text encoder's embedding, as in the JAX package."""
+    if cfg.model in BASELINE_FAMILIES:
+        raise NotImplementedError(
+            f"model {cfg.model!r}: the port has the hierarchy only; the "
+            "baseline families and the embedders' training systems wait for "
+            "ROADMAP A.5")
+    if cfg.model != "hierarchy":
+        raise ValueError(f"unknown model {cfg.model!r}")
+    from ha2g_torch.train.hierarchy import HierarchySystem
+    system = HierarchySystem(cfg, n_words, n_speakers, device=device,
+                             generator=generator)
+    if word_embeddings is not None:
+        table = torch.as_tensor(np.asarray(word_embeddings, np.float32))
+        with torch.no_grad():
+            for m in system.modules():
+                if isinstance(m, TextEncoderTCN):
+                    m.embedding.weight.copy_(table)
+    return system
+
+
+class Trainer:
+    def __init__(self, cfg: Config, train_samples, val_samples, lang: Vocab,
+                 speaker: Vocab,
+                 evaluator: Optional[EmbeddingSpaceEvaluator] = None,
+                 beat_consistency_score: bool = False, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.lang = lang
+        self.speaker = speaker
+        self.evaluator = evaluator
+        self.bc_enabled = beat_consistency_score
+        self.seed = max(cfg.random_seed, 0)
+        self.system = build_system(
+            cfg, lang.n_words, max(speaker.n_words, 1),
+            lang.word_embedding_weights, device=self.device,
+            generator=torch.Generator().manual_seed(self.seed))
+        self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        # the train loader ships only the fields the step reads, to the
+        # device; the val batches stay on the host (the metrics read them)
+        self.train_loader = BatchLoader(
+            train_samples, cfg.batch_size, shuffle=True,
+            keys=("text", "spec", "target", "vids"), device=self.device)
+        # drop the odd-sized last val batch, as the JAX package does
+        self.val_loader = BatchLoader(
+            val_samples, cfg.batch_size, shuffle=False,
+            drop_last=len(val_samples) >= cfg.batch_size)
+        self.step = 0
+        self.best_values: dict[str, tuple[float, int]] = {}
+        # host seconds of the last evaluate() by part: the eval steps (to
+        # the host read of their output), the embedding, MAJE / accel / BC,
+        # and the FGD statistics (np.cov + sqrtm)
+        self.eval_times: dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    def evaluate(self, epoch: int = 0) -> dict:
+        """Validation metrics of the current parameters: loss (mean L1),
+        joint_mae, accel, BC (with beat consistency on), and frechet,
+        feat_dist, diversity (with an evaluator)."""
+        cfg = self.cfg
+        meters = {k: AverageMeter(k) for k in ("loss", "joint_mae", "accel",
+                                               "bc")}
+        if self.evaluator:
+            self.evaluator.reset()
+        mean_vec = cfg.mean_dir_vec_array
+        rng = np.random.default_rng(epoch)
+        times = dict.fromkeys(("eval_step", "embed", "metrics", "stats"), 0.0)
+        t0 = time.perf_counter()
+        for i, batch in enumerate(self.val_loader):
+            b = dict(batch)
+            if cfg.z_type == "speaker" and self.speaker.n_words > 0:
+                # random speaker ids at eval (train.py:366)
+                b["vids"] = rng.integers(0, self.speaker.n_words,
+                                         b["vids"].shape).astype(np.int32)
+            t = time.perf_counter()
+            # a CPU generator: the speaker-z noise of an evaluation is the
+            # same on every device
+            gen = torch.Generator().manual_seed(self.seed + 10_000 + i)
+            out, loss = self.system.eval_step(b, gen)
+            B = b["target"].shape[0]
+            meters["loss"].update(float(loss), B)
+            out_np = out.cpu().numpy()
+            times["eval_step"] += time.perf_counter() - t
+            if self.evaluator:
+                t = time.perf_counter()
+                self.evaluator.push_samples(out, b["target"])
+                times["embed"] += time.perf_counter() - t
+            t = time.perf_counter()
+            mae, acc = maje_and_accel(out_np, b["target"], mean_vec,
+                                      cfg.skeleton, cfg.n_pre_poses)
+            meters["joint_mae"].update(mae, B)
+            meters["accel"].update(acc, B)
+            if self.bc_enabled:
+                bc, n = beat_consistency(
+                    out_np, b["audio"], mean_vec, cfg.skeleton,
+                    cfg.motion_resampling_framerate)
+                if n:
+                    meters["bc"].update(bc, n)
+            times["metrics"] += time.perf_counter() - t
+
+        ret = {"loss": meters["loss"].avg,
+               "joint_mae": meters["joint_mae"].avg,
+               "accel": meters["accel"].avg}
+        if self.bc_enabled:
+            ret["BC"] = meters["bc"].avg
+        if self.evaluator and self.evaluator.get_no_of_samples() > 0:
+            t = time.perf_counter()
+            ret["frechet"], ret["feat_dist"] = self.evaluator.get_scores()
+            times["stats"] = time.perf_counter() - t
+            ret["diversity"] = self.evaluator.get_diversity_scores()
+        times["total"] = time.perf_counter() - t0
+        self.eval_times = times
+        logging.info("[VAL] " + ", ".join(f"{k}: {v:.4f}"
+                                          for k, v in ret.items()) +
+                     f" / {times['total']:.1f}s")
+        return ret
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> dict:
+        """One pass over the train loader; -> the metrics' epoch means and
+        ``samples_per_s``."""
+        gan_on = epoch > self.cfg.loss_warmup
+        sums: dict[str, torch.Tensor] = {}
+        t0, n_steps, n_samples = time.perf_counter(), 0, 0
+        for batch in self.train_loader:
+            metrics = self.system.train_step(batch, gan_on, self.generator)
+            self.step += 1
+            n_steps += 1
+            n_samples += batch["target"].shape[0]
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        keys = sorted(sums)
+        host = torch.stack([sums[k] for k in keys]).cpu().tolist() \
+            if keys else []
+        means = {k: v / n_steps for k, v in zip(keys, host)}
+        sps = n_samples / max(time.perf_counter() - t0, 1e-9)
+        logging.info(f"[TRAIN] epoch {epoch}: " +
+                     ", ".join(f"{k}: {v:.4f}" for k, v in means.items())
+                     + f" ({sps:.1f} samples/s)")
+        return {**means, "samples_per_s": sps}
+
+    def resume(self, path) -> int:
+        """Restore parameters, batch-norm statistics, both optimisers and
+        the step count from a checkpoint; -> the epoch to start at (the
+        saved ``extra.epoch`` + 1)."""
+        self.step = load_state(path, self.system)
+        _, extra = load_config(path)
+        return int(extra.get("epoch", -1)) + 1
+
+    def save(self, path, extra: dict) -> None:
+        save_checkpoint(path, self.system, self.cfg, self.lang, self.speaker,
+                        extra=extra, step=self.step)
+
+    def fit(self, epochs: Optional[int] = None, save_path=None,
+            resume_from: Optional[str] = None) -> list[dict]:
+        """Train ``epochs`` epochs (the config's by default), or the rest
+        of them after ``resume_from``; -> the history rows."""
+        epochs = epochs or self.cfg.epochs
+        save_path = Path(save_path or self.cfg.model_save_path)
+        start_epoch = 0
+        if resume_from:
+            start_epoch = self.resume(resume_from)
+            logging.info(f"resumed from {resume_from} at epoch "
+                         f"{start_epoch}")
+        save_path.mkdir(parents=True, exist_ok=True)
+        history_path = save_path / "history.jsonl"
+        if not resume_from and history_path.exists():
+            history_path.unlink()   # a fresh run starts a fresh trajectory
+        history = []
+
+        def record(val: dict, epoch_no: int):
+            row = {"epoch": epoch_no, **{k: float(v) for k, v in val.items()}}
+            history.append(row)
+            with open(history_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+
+        for epoch in range(start_epoch, epochs):
+            val = self.evaluate(epoch)      # evaluation first (train.py:190)
+            record(val, epoch)
+            self._track_best(val, epoch, save_path)
+            if epoch % 10 == 0 and epoch > 0:
+                self.save(save_path / f"checkpoint_{epoch:03d}",
+                          {"epoch": epoch - 1})
+            self.train_epoch(epoch)
+
+        val = self.evaluate(epochs)
+        record(val, epochs)
+        self._track_best(val, epochs, save_path)
+        self.save(save_path / "checkpoint_final", {"epoch": epochs - 1})
+        return history
+
+    def _track_best(self, val: dict, epoch: int, save_path: Path) -> None:
+        """Per-key best values; the selection key's best saves
+        checkpoint_best (train.py:174-243)."""
+        select_key = "frechet" if "frechet" in val else "loss"
+        for k, v in val.items():
+            if k in self.best_values:
+                prev = self.best_values[k][0]
+                if not (v > prev if k == "diversity" else v < prev):
+                    continue
+            self.best_values[k] = (v, epoch)
+            if k == select_key:
+                self.save(save_path / "checkpoint_best",
+                          {"epoch": epoch, "val": val})
+                logging.info(f"  [BEST] {k} = {v:.4f} @ epoch {epoch}")

@@ -232,3 +232,41 @@ def test_flash_contrastive_gradient_on_the_card(cuda):
     # the kernels (card) against the plain versions (CPU): sums of N terms
     for got, want in zip(grads[1], grads[0]):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_pinned_loader_matches_host_gather(cuda):
+    """The train loader on the card (pinned buffers, non-blocking copies
+    queued behind other work) gives the host gather's batches for a seed,
+    over two epochs: no pinned buffer is refilled before its copy is
+    done."""
+    import numpy as np
+    from ha2g_torch.data.dataset import WindowedSamples
+    from ha2g_torch.data.loader import BatchLoader
+    rng = np.random.default_rng(0)
+    n = 300
+    z = np.zeros
+    samples = WindowedSamples(
+        text=rng.integers(0, 50, (n, 34)).astype(np.int32),
+        word_seq=z((n, 2), np.int32), word_lengths=z(n, np.int32),
+        pose=z((n, 34, 3), np.float32),
+        target=rng.normal(size=(n, 34, 27)).astype(np.float32),
+        audio=z((n, 2), np.float32),
+        spec=rng.normal(size=(n, 128, 70)).astype(np.float32),
+        vids=np.arange(n, dtype=np.int32))
+    keys = ("text", "spec", "target", "vids")
+    host = BatchLoader(samples, 32, keys=keys, seed=1)
+    card = BatchLoader(samples, 32, keys=keys, seed=1, device=cuda)
+    busy = torch.randn((2048, 2048), device=cuda)
+    for _ in range(2):
+        got = []
+        for batch in card:
+            got.append(batch)
+            for _ in range(4):
+                busy = busy @ busy.T / 2048.0
+        torch.cuda.synchronize()
+        want = list(host)
+        assert len(got) == len(want) == len(host)
+        for g, w in zip(got, want):
+            for k in keys:
+                assert g[k].device.type == "cuda"
+                assert np.array_equal(g[k].cpu().numpy(), w[k]), k

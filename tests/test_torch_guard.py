@@ -1,10 +1,12 @@
 """The port stands alone: no module of ha2g_torch, and not chip_smoke.py,
 imports JAX or the JAX package (checked with ast, without importing), and
-its entry points need CUDA unless the caller asks for the CPU."""
+its entry points (the systems, the evaluator, the trainer, the command
+line) need CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 import tests.torch_cpu  # noqa: F401  (one torch thread)
@@ -16,12 +18,18 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ha2g_tpu"}
 ALLOWED_THIRD_PARTY = {"torch", "numpy", "einops"}
 
 
-# the modules of the serving and training slices, which the scan must see
+# the modules of the serving, training, evaluation and driver slices,
+# which the scan must see
 PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "synthesis.py", "models/common.py", "models/hierarchy.py",
                 "models/resnet_se.py", "models/tcn.py", "ops/contrastive.py",
                 "ops/gru.py", "ops/gru_kernel.py", "ops/mel.py",
-                "train/cascade.py", "train/hierarchy.py", "train/losses.py")
+                "train/cascade.py", "train/hierarchy.py", "train/losses.py",
+                "checkpoint.py", "cli.py", "models/embedding_net.py",
+                "models/motion_ae.py", "eval/fgd.py", "eval/metrics.py",
+                "data/dataset.py", "data/loader.py", "data/storage.py",
+                "data/synthetic.py", "data/vocab.py", "train/loop.py",
+                "utils/average_meter.py")
 
 
 def _port_files():
@@ -77,3 +85,32 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert HierarchySystem(cfg, 8, 2, device="cpu").device.type == "cpu"
+
+    # the evaluator, the trainer and the command line
+    from ha2g_torch import cli
+    from ha2g_torch.data.dataset import WindowedSamples
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator, make_embedder
+    from ha2g_torch.train.loop import Trainer
+
+    sd = make_embedder(27).state_dict()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbeddingSpaceEvaluator(27, 34, sd)
+    assert EmbeddingSpaceEvaluator(27, 34, sd, device="cpu").device.type == \
+        "cpu"
+    z = np.zeros
+    samples = WindowedSamples(
+        text=z((2, 34), np.int32), word_seq=z((2, 2), np.int32),
+        word_lengths=z(2, np.int32), pose=z((2, 34, 30), np.float32),
+        target=z((2, 34, 27), np.float32), audio=z((2, 8), np.float32),
+        spec=z((2, 128, 70), np.float32), vids=z(2, np.int32))
+    lang, speaker = Vocab("words"), Vocab("vid", insert_default_tokens=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg.replace(batch_size=2), samples, samples, lang, speaker)
+    assert Trainer(cfg.replace(batch_size=2), samples, samples, lang, speaker,
+                   device="cpu").system.device.type == "cpu"
+    for argv in (["train", "--config", str(ROOT / "configs" /
+                                          "hierarchy.yaml")],
+                 ["eval", "checkpoint"], ["synthesize", "checkpoint"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
