@@ -59,7 +59,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    warm-up, 6 GAN) with the budgets of tests/test_precision.py at its
    narrow TED Gesture setup (asserted), and the same at full TED
    Expressive width (printed), each ending in FGD through one frozen fp32
-   embedder.
+   embedder;
+8. serving a checkpoint (configs_expressive/hierarchy.yaml, bf16, seed-0
+   weights): a port checkpoint through ``export-checkpoint`` to a
+   reference .bin and ``import-checkpoint`` back, every tensor equal;
+   ``GestureService`` (20 s clips, buckets 1 / 4 / 8 / 16): warm-up, one
+   request against the direct ``generate_fused`` call, 8 and 16
+   concurrent requests against the rows of direct calls on the same
+   padded batches (bit for bit), the HTTP API in every encoding, a
+   profile of one request; a live stream of 100 ms feeds (latency
+   percentiles), the fp32 stream against ``generate`` (1e-3) and the
+   bf16 one (printed), 8 streams through the stream batcher; ``cli
+   serve`` as a process, ``from-text --wav`` and ``synthesize
+   --fade_out``.  B1's launches of every step equal 24 x windows x calls.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -196,11 +208,13 @@ def _b1_inputs(T, B, H, dtype, seed=0):
     return [t.to("cuda", dtype).contiguous() for t in (xp, h0, w_hh, b_hh)]
 
 
-# B1 shapes held against the plain version: the serving and train shapes,
+# B1 shapes held against the plain version: the serving shapes (B = 4 is
+# the service's second bucket) and the train shapes,
 # one and several row groups (97: a ragged last group), hidden sizes whose
 # last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48)
-B1_SHAPES = ((34, 1, 300), (34, 8, 300), (34, 16, 300), (34, 96, 300),
-             (34, 97, 300), (7, 3, 48), (11, 5, 200), (6, 16, 45))
+B1_SHAPES = ((34, 1, 300), (34, 4, 300), (34, 8, 300), (34, 16, 300),
+             (34, 96, 300), (34, 97, 300), (7, 3, 48), (11, 5, 200),
+             (6, 16, 45))
 B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200))
 
 
@@ -1498,6 +1512,489 @@ def _bf16_drift():
     _drift(full, N_WORDS, N_SPEAKERS, MotionAE(126, 128), 128, check=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving a checkpoint
+# ---------------------------------------------------------------------------
+
+SERVE_CLIP_SECONDS = 20.0
+SERVE_MAX_BATCH = 16
+# turns of (service, HTTP, direct call) for one request's latency
+SERVE_TURNS = 20
+# the fp32 stream (length known, an early peak) against generate: the
+# bound the fp32 serving path meets between the card and the CPU
+STREAM_ATOL = 1e-3
+
+
+def _b1_launches() -> int:
+    from ha2g_torch.ops.gru_kernel import gru_recurrence
+    return gru_recurrence.launches
+
+
+def _expect_b1(step: str, before: int, want: int) -> int:
+    """B1's launches since ``before`` must be ``want``; -> them."""
+    got = _b1_launches() - before
+    if got != want:
+        raise AssertionError(f"{step}: {got} B1 launches, the dataflow "
+                             f"gives {want}")
+    return got
+
+
+def _serve_clip(seconds, seed, click=False):
+    """A clip of noise and its words; ``click`` puts the loudest frame in
+    the first window (a stream's running dB reference is then the whole
+    clip's from window 0 on)."""
+    rng = np.random.default_rng(seed)
+    audio = (rng.normal(size=int(seconds * SR)) * 0.05).astype(np.float32)
+    if click:
+        audio[8000:8640] += np.sin(np.arange(640) * 0.7).astype(np.float32)
+    words = [(f"w{rng.integers(0, 40)}", float(t), float(t + 0.3))
+             for t in np.arange(0.3, seconds - 0.5, 0.45)]
+    return audio, words
+
+
+def _http(url, obj=None, timeout=300):
+    """GET (obj None) or POST JSON; -> (status, decoded body)."""
+    import urllib.error
+    import urllib.request
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode(errors="replace")}
+
+
+def _serve_checkpoints(work: Path):
+    """Seed-0 weights of the full-width TED Expressive hierarchy saved as a
+    port checkpoint (bf16 and fp32 configs), then ``export-checkpoint`` to
+    a reference .bin and ``import-checkpoint`` back: every tensor equal,
+    ref_routing_compat on.  -> (bf16 dir, fp32 dir, lang)."""
+    from ha2g_torch import checkpoint as ckpt
+    from ha2g_torch import cli
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.train.hierarchy import HierarchySystem
+
+    cfg = Config.from_yaml(ROOT / CLI_CONFIG)
+    lang = _vocab()
+    speaker = Vocab("vid", insert_default_tokens=False)
+    for i in range(N_SPEAKERS - speaker.n_words):
+        speaker.index_word(f"s{i}")
+    system = HierarchySystem(cfg, lang.n_words, speaker.n_words,
+                             generator=torch.Generator().manual_seed(0))
+    seconds = {}
+    t = time.perf_counter()
+    ckpt.save_checkpoint(work / "ckpt", system, cfg, lang, speaker)
+    seconds["save"] = time.perf_counter() - t
+    ckpt.save_checkpoint(work / "ckpt32", system,
+                         cfg.replace(compute_dtype="float32"), lang, speaker)
+    for name, argv in (("export", ["export-checkpoint", str(work / "ckpt"),
+                                   str(work / "ref.bin")]),
+                       ("import", ["import-checkpoint", str(work / "ref.bin"),
+                                   str(work / "imported")])):
+        t = time.perf_counter()
+        _cli_call(argv, dict.fromkeys(_read_counts(), 0))
+        seconds[name] = time.perf_counter() - t
+    want = ckpt.read_state(work / "ckpt")["model"]
+    got = ckpt.read_state(work / "imported")["model"]
+    equal = want.keys() == got.keys() and all(
+        torch.equal(got[k], v) for k, v in want.items())
+    compat = ckpt.load_config(work / "imported")[0].ref_routing_compat
+    ok = equal and compat
+    _line("ckpt-bridge", tensors=len(want), equal=equal,
+          ref_routing_compat=compat,
+          bin_bytes=(work / "ref.bin").stat().st_size,
+          **{f"{k}_s": f"{v:.2f}" for k, v in seconds.items()}, ok=ok)
+    if not ok:
+        raise AssertionError("the checkpoint bridge failed its checks")
+    del system
+    return work / "ckpt", work / "ckpt32", lang
+
+
+def _serve_service(ckpt_dir, lang, paths):
+    """GestureService: warm-up; one 20 s request through the service, over
+    HTTP and as a direct call, in turns; 8 and 16 concurrent requests
+    against the rows of direct calls on the same padded batches; the HTTP
+    API in every encoding; a profile of one request."""
+    import base64
+    import threading
+    from ha2g_torch.ops.mel import mulaw_encode_np
+    from ha2g_torch.serve import GestureService, make_http_server
+    from ha2g_torch.synthesis import _window_layout
+
+    _, _, W = _window_layout(_config("bfloat16"), SERVE_CLIP_SECONDS)
+    per_call = W * 24
+    out = {}
+    before = _b1_launches()
+    t = time.perf_counter()
+    svc = GestureService(str(ckpt_dir), max_clip_seconds=SERVE_CLIP_SECONDS,
+                         max_batch=SERVE_MAX_BATCH)
+    out["warmup_s"] = time.perf_counter() - t
+    _, _, w_stream = _window_layout(svc.cfg, 4.0)
+    paths["serving:service"] += _expect_b1(
+        "serve-warmup", before,
+        svc.stats["batches"] * per_call + w_stream * 24)
+    _line("serve-warmup", seconds=f"{out['warmup_s']:.1f}",
+          buckets=svc.buckets, batches=svc.stats["batches"],
+          requests=svc.stats["requests"], stream_windows=w_stream)
+    synth = svc.synth
+    httpd = make_http_server(svc, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        # one request: the service, HTTP and the direct call in turns
+        audio, words = _serve_clip(SERVE_CLIP_SECONDS, 1)
+        vids = np.asarray([3])
+        n_frames = int(round(SERVE_CLIP_SECONDS * svc.fps))
+        body = {"audio": base64.b64encode(audio.astype("<f4").tobytes())
+                .decode(), "words": [list(w) for w in words], "vid": 3}
+
+        def http_call():
+            code, resp = _http(f"{url}/synthesize", body)
+            if code != 200:
+                raise AssertionError(f"POST /synthesize: {code} {resp}")
+            return np.frombuffer(base64.b64decode(resp["dir_vec"]), "<f4") \
+                .reshape(resp["shape"])
+
+        calls = {"service": lambda: svc.synthesize(audio, words, vid=3),
+                 "http": http_call,
+                 "direct": lambda: synth.generate_fused(
+                     audio[None], [words], lang, vids)[0][:n_frames]}
+        results = {k: fn() for k, fn in calls.items()}
+        err = max(float(np.abs(results[k] - results["direct"]).max())
+                  for k in ("service", "http"))
+        times = {k: [] for k in calls}
+        b0, n0 = _b1_launches(), svc.stats["batches"]
+        for rep in range(SERVE_TURNS):
+            for k in (calls if rep % 2 == 0 else reversed(list(calls))):
+                t = time.perf_counter()
+                calls[k]()
+                times[k].append((time.perf_counter() - t) * 1e3)
+        batches = svc.stats["batches"] - n0
+        _expect_b1("serve-request", b0, (batches + SERVE_TURNS) * per_call)
+        paths["serving:service"] += batches * per_call
+        med = {k: statistics.median(v) for k, v in times.items()}
+        # each turn's own difference: the host's drift between turns
+        # cancels out of it
+        paired = {k: np.percentile(np.subtract(times[k], times["direct"]),
+                                   [25, 50, 75]) for k in ("service", "http")}
+        ok = results["service"].shape == (n_frames, 126) and err == 0.0 \
+            and batches == 2 * SERVE_TURNS
+        _line("serve-request", clip_seconds=SERVE_CLIP_SECONDS, windows=W,
+              turns=SERVE_TURNS, service_ms=f"{med['service']:.2f}",
+              http_ms=f"{med['http']:.2f}",
+              direct_generate_fused_ms=f"{med['direct']:.2f}",
+              service_ms_range=f"{min(times['service']):.2f}-"
+              f"{max(times['service']):.2f}",
+              direct_ms_range=f"{min(times['direct']):.2f}-"
+              f"{max(times['direct']):.2f}",
+              **{f"{k}_minus_direct_ms_q1_median_q3":
+                 "/".join(f"{x:.2f}" for x in v) for k, v in paired.items()},
+              max_abs_err_vs_direct=f"{err:.3e}", ok=ok)
+        if not ok:
+            raise AssertionError("a service request differs from the "
+                                 "direct call")
+        out.update(service_ms=med["service"], direct_ms=med["direct"],
+                   http_ms=med["http"])
+
+        # concurrent requests; record each batch to rebuild it directly
+        groups = []
+        run = svc._run
+
+        def recording_run(group, fused):
+            groups.append(list(group))
+            run(group, fused)
+
+        svc._run = recording_run
+        for n in (8, 16):
+            clips = [_serve_clip(SERVE_CLIP_SECONDS - 0.5 * (i % 4), 10 + i)
+                     for i in range(n)]
+            answers = [None] * n
+            groups.clear()
+            b0, n0 = _b1_launches(), svc.stats["batches"]
+
+            def call(i):
+                a, w = clips[i]
+                answers[i] = svc.synthesize(a, w, vid=i % N_SPEAKERS)
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(n)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            wall = time.perf_counter() - t
+            batches = svc.stats["batches"] - n0
+            paths["serving:service"] += _expect_b1(
+                f"serve-concurrent n={n}", b0, batches * per_call)
+            err = 0.0
+            for group in groups:
+                a, w, v = svc.padded_batch(group)
+                want = synth.generate_fused(a, w, lang, v)
+                for i, r in enumerate(group):
+                    err = max(err, float(np.abs(
+                        r.result - want[i, :len(r.result)]).max()))
+            ok = batches < n and err == 0.0 and all(
+                r is not None and np.isfinite(r).all() for r in answers)
+            frames = sum(len(r) for r in answers if r is not None)
+            _line("serve-concurrent", requests=n, batches=batches,
+                  batch_sizes=[len(g) for g in groups],
+                  wall_ms=f"{wall * 1e3:.2f}", frames=frames,
+                  frames_per_s=f"{frames / wall:.1f}",
+                  max_abs_err_vs_direct_rows=f"{err:.3e}", ok=ok)
+            if not ok:
+                raise AssertionError(f"{n} concurrent requests failed "
+                                     "their checks")
+        svc._run = run
+
+        # the HTTP API in every encoding and return type
+        b0, n0 = _b1_launches(), svc.stats["batches"]
+        codes = {}
+        raws = {"pcm_f32": audio.astype("<f4").tobytes(),
+                "pcm_i16": (audio * 32767).astype("<i2").tobytes(),
+                "pcm_mulaw": mulaw_encode_np(audio).tobytes()}
+        for enc, raw in raws.items():
+            for rd in ("f32", "f16"):
+                code, resp = _http(f"{url}/synthesize", {
+                    **body, "audio": base64.b64encode(raw).decode(),
+                    "encoding": enc, "return_dtype": rd})
+                codes[f"{enc}/{rd}"] = code
+                if code != 200 or resp["shape"] != [n_frames, 126]:
+                    raise AssertionError(f"POST /synthesize {enc} {rd}: "
+                                         f"{code} {resp.get('error')}")
+        for path in ("/healthz", "/stats"):
+            codes[path], resp = _http(url + path)
+        paths["serving:service"] += _expect_b1(
+            "serve-http", b0, (svc.stats["batches"] - n0) * per_call)
+        ok = all(c == 200 for c in codes.values()) and resp["errors"] == 0
+        _line("serve-http", codes=codes, errors=resp["errors"], ok=ok)
+        if not ok:
+            raise AssertionError("the HTTP API failed its checks")
+
+        b0 = _b1_launches()
+        _profile("service:B=1", calls["service"], med["service"])
+        paths["serving:service"] += _expect_b1("serve-profile", b0, per_call)
+        if svc.stats["errors"]:
+            raise AssertionError(f"{svc.stats['errors']} service errors")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    return out
+
+
+def _serve_streams(ckpt_dir, ckpt32_dir, lang, paths):
+    """Live streams: a 20 s clip in 100 ms feeds; the fp32 stream against
+    generate (1e-3) and the bf16 one (printed); 8 concurrent streams
+    through the stream batcher."""
+    import threading
+    from ha2g_torch.serve import GestureService
+    from ha2g_torch.synthesis import _window_layout
+
+    out = {}
+    svc = GestureService(str(ckpt_dir), max_clip_seconds=SERVE_CLIP_SECONDS,
+                         max_batch=SERVE_MAX_BATCH, warm=False)
+    try:
+        cfg = svc.cfg
+        _, _, W = _window_layout(cfg, SERVE_CLIP_SECONDS)
+        frames = cfg.n_poses + (W - 1) * (cfg.n_poses - cfg.n_pre_poses)
+        audio, words = _serve_clip(SERVE_CLIP_SECONDS, 2)
+        sid = svc.open_stream(vid=1)
+        svc.stream_feed(sid, words=words)
+        chunk = int(0.1 * SR)
+        lat, emitted = [], 0
+        b0 = _b1_launches()
+        for i in range(0, len(audio), chunk):
+            t = time.perf_counter()
+            emitted += len(svc.stream_feed(sid, audio[i:i + chunk]))
+            lat.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        emitted += len(svc.stream_finish(sid))
+        finish_ms = (time.perf_counter() - t) * 1e3
+        paths["serving:stream"] += _expect_b1("stream-feed", b0, W * 24)
+        p50, p95 = np.percentile(lat, [50, 95])
+        ok = emitted == frames and \
+            len(lat) == round(SERVE_CLIP_SECONDS * 10)
+        _line("stream-feed", feeds=len(lat), chunk_ms=100, windows=W,
+              feed_ms_p50=f"{p50:.2f}", feed_ms_p95=f"{p95:.2f}",
+              feed_ms_max=f"{max(lat):.2f}", finish_ms=f"{finish_ms:.2f}",
+              frames_emitted=emitted, batch_frames=frames, ok=ok)
+        if not ok:
+            raise AssertionError("the stream emitted the wrong frames")
+        out.update(feed_p50=p50, feed_p95=p95)
+    finally:
+        svc.close()
+
+    # the stream (length known, early peak) against generate
+    audio, words = _serve_clip(SERVE_CLIP_SECONDS, 3, click=True)
+    for name, path in (("float32", ckpt32_dir), ("bfloat16", ckpt_dir)):
+        svc = GestureService(str(path), max_clip_seconds=SERVE_CLIP_SECONDS,
+                             max_batch=SERVE_MAX_BATCH, warm=False)
+        try:
+            want = svc.synth.generate(audio[None], [words], lang,
+                                      np.asarray([2]))[0]
+            b0 = _b1_launches()
+            sid = svc.open_stream(vid=2, total_seconds=SERVE_CLIP_SECONDS)
+            got = [svc.stream_feed(sid, words=words)]
+            for i in range(0, len(audio), SR):
+                got.append(svc.stream_feed(sid, audio[i:i + SR]))
+            got.append(svc.stream_finish(sid))
+            paths["serving:stream"] += _expect_b1(f"stream-vs-batch {name}",
+                                                  b0, W * 24)
+            got = np.concatenate(got)
+            err = float(np.abs(got - want).max())
+            ok = got.shape == want.shape and (name == "bfloat16"
+                                              or err <= STREAM_ATOL)
+            _line("stream-vs-batch", dtype=name, shape=tuple(got.shape),
+                  max_abs_err=f"{err:.3e}",
+                  tol=f"{STREAM_ATOL:.0e}" if name == "float32"
+                  else "printed", ok=ok)
+            if not ok:
+                raise AssertionError(f"the {name} stream differs from "
+                                     "generate")
+            out[f"stream_err_{name}"] = err
+        finally:
+            svc.close()
+
+    # 8 concurrent streams through the stream batcher
+    svc = GestureService(str(ckpt_dir), max_clip_seconds=SERVE_CLIP_SECONDS,
+                         max_batch=SERVE_MAX_BATCH, warm=False,
+                         stream_batching=True)
+    try:
+        clips = [_serve_clip(10.0, 30 + i) for i in range(8)]
+        results = [None] * 8
+        b0 = _b1_launches()
+
+        def run(i):
+            a, w = clips[i]
+            sid = svc.open_stream(vid=i % N_SPEAKERS)
+            outs = [svc.stream_feed(sid, words=w)]
+            for j in range(0, len(a), SR // 2):
+                outs.append(svc.stream_feed(sid, a[j:j + SR // 2]))
+            outs.append(svc.stream_finish(sid))
+            results[i] = np.concatenate(outs)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        st = svc.stats
+        paths["serving:stream_batched"] += _expect_b1(
+            "stream-batching", b0, st["stream_batches"] * 24)
+        _, _, w10 = _window_layout(svc.cfg, 10.0)
+        ok = (st["stream_windows"] == 8 * w10
+              and st["stream_batches"] < st["stream_windows"]
+              and all(r is not None and np.isfinite(r).all()
+                      for r in results) and st["errors"] == 0)
+        _line("stream-batching", streams=8, windows=st["stream_windows"],
+              batches=st["stream_batches"], wall_ms=f"{wall * 1e3:.2f}",
+              ok=ok)
+        if not ok:
+            raise AssertionError("the stream batcher failed its checks")
+    finally:
+        svc.close()
+    return out
+
+
+def _serve_cli(ckpt_dir, work: Path, paths):
+    """``cli serve`` as a process answering one POST; ``from-text --wav``
+    and ``synthesize --fade_out`` in process."""
+    import base64
+    import socket
+    import wave
+    from ha2g_torch.synthesis import _window_layout
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ha2g_torch.cli", "serve", str(ckpt_dir),
+         "--port", str(port), "--max_batch", "4"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        code = None
+        while time.perf_counter() - t < 300 and proc.poll() is None:
+            try:
+                code, _ = _http(f"{url}/healthz", timeout=5)
+                break
+            except OSError:
+                time.sleep(1.0)
+        ready_s = time.perf_counter() - t
+        audio, words = _serve_clip(4.0, 5)
+        post, resp = _http(f"{url}/synthesize", {
+            "audio": base64.b64encode(audio.astype("<f4").tobytes()).decode(),
+            "words": [list(w) for w in words]}) if code == 200 else (None, {})
+    finally:
+        proc.terminate()
+        try:
+            log, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    ok = code == 200 and post == 200 and resp.get("shape") == [60, 126]
+    _line("cli-serve", healthz=code, post=post, shape=resp.get("shape"),
+          ready_s=f"{ready_s:.1f}", exit=proc.returncode, ok=ok)
+    if not ok:
+        print(log[-4000:], flush=True)
+        raise AssertionError("cli serve failed its checks")
+
+    pcm = (np.random.default_rng(6).normal(size=int(6 * SR)) * 3000) \
+        .astype("<i2")
+    wav = work / "speech.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(pcm.tobytes())
+    cfg = _config("bfloat16")
+    zero = dict.fromkeys(_read_counts(), 0)
+    before = _read_counts()
+    _, _, W = _window_layout(cfg, 6.0)
+    _cli_call(["from-text", str(ckpt_dir), "--text",
+               "so this is how we talk with our hands", "--wav", str(wav),
+               "--out", str(work / "text.npz")], {**zero, "b1": W * 24})
+    text = np.load(work / "text.npz")["dir_vec"]
+    _, _, W8 = _window_layout(cfg, 8.0)
+    _cli_call(["synthesize", str(ckpt_dir), "--n", "2", "--fade_out",
+               "--out", str(work / "faded.npz")], {**zero, "b1": W8 * 24})
+    faded = np.load(work / "faded.npz")["dir_vec"]
+    paths["serving:cli"] += _read_counts()["b1"] - before["b1"]
+    frames = lambda w: cfg.n_poses + (w - 1) * (cfg.n_poses - cfg.n_pre_poses)
+    ok = (text.shape == (1, frames(W) + 8, 126)
+          and faded.shape == (2, frames(W8) + 8, 126)
+          and np.isfinite(text).all() and np.isfinite(faded).all())
+    _line("cli-from-text-fade-out", from_text=tuple(text.shape),
+          synthesize_fade_out=tuple(faded.shape), ok=ok)
+    if not ok:
+        raise AssertionError("from-text / synthesize --fade_out failed")
+
+
+def _serving(work: Path):
+    """Phase 8; -> (launch counts of every kernel by path, numbers)."""
+    _reset_counts()
+    paths = dict.fromkeys(("serving:service", "serving:stream",
+                           "serving:stream_batched", "serving:cli"), 0)
+    t0 = time.perf_counter()
+    ckpt_dir, ckpt32_dir, lang = _serve_checkpoints(work)
+    numbers = _serve_service(ckpt_dir, lang, paths)
+    numbers.update(_serve_streams(ckpt_dir, ckpt32_dir, lang, paths))
+    _serve_cli(ckpt_dir, work, paths)
+    counts = _read_counts()
+    if any(counts[k] for k in ("b1_bwd", "b2", "b3", "b4")):
+        raise AssertionError("training kernels launched while serving")
+    _line("serving-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k.split(":")[1]: v for k, v in paths.items()})
+    return paths, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1578,15 +2075,21 @@ def main() -> int:
     # phase 7: bf16 training against fp32
     _bf16_drift()
 
+    # phase 8: serving a checkpoint (bridge, service, HTTP, streams, CLI)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        serve_paths, _ = _serving(Path(tmp))
+
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
         f"training:{config}": run[k] for config, run in runs.items()},
-        "training:cli": cli_counts[k]}
+        "training:cli": cli_counts[k], **{
+            path: n if k == "b1" else 0 for path, n in serve_paths.items()}}
     entries = [{
         "name": "gru_recurrence", "route": "cuda",
         "source": "ha2g_torch/csrc/gru_recurrence.cu",
         "replaces": "ha2g_tpu/ops/pallas_gru.py:48",
-        "launches": serving["b1"] + training["b1"] + cli_counts["b1"],
+        "launches": serving["b1"] + training["b1"] + cli_counts["b1"]
+        + sum(serve_paths.values()),
         "launches_by_path": by_path("b1"),
         "max_abs_err": errs[(34, 8, 300, torch.bfloat16)],
         "ms": main["ms"], "plain_ms": main["plain_ms"],

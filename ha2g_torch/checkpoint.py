@@ -14,9 +14,15 @@ A checkpoint is a directory:
 
 ``load_state`` reads ``state.pt`` with ``weights_only=True`` into a freshly
 built system with strict keys, and restores parameters, batch-norm
-statistics and Adam moments exactly.  An FGD embedder is saved the same
-way by ``save_embedder`` (model only, with a config whose model is
-``gesture_autoencoder``), and read by ``load_embedder``.
+statistics and Adam moments exactly.  It also reads a checkpoint directory
+of the JAX package (ha2g_tpu/checkpoint.py), whose ``state.msgpack`` holds
+the ``HierarchyState`` tree: ``read_jax_state`` decodes its parameters and
+batch-norm statistics (``utils/msgpack.py``), and ``convert.hierarchy_state``
+maps them onto the port's keys.  Its optimiser moments are not carried, so
+such a checkpoint serves and evaluates but does not resume.  An FGD
+embedder is saved the same way by ``save_embedder`` (model only, with a
+config whose model is ``gesture_autoencoder``), and read by
+``load_embedder``.
 """
 
 from __future__ import annotations
@@ -29,9 +35,12 @@ import numpy as np
 import torch
 
 from ha2g_torch.config import Config
+from ha2g_torch.convert import hierarchy_state
 from ha2g_torch.data.vocab import Vocab
+from ha2g_torch.utils.msgpack import unpackb
 
 STATE = "state.pt"
+JAX_STATE = "state.msgpack"
 
 
 def _cpu(obj):
@@ -74,9 +83,41 @@ def read_state(path) -> dict[str, Any]:
                       weights_only=True)
 
 
+def _jax_state(tree: dict) -> tuple[dict, dict]:
+    params = dict(tree["params"])
+    gens = params["gens"]
+    params["gens"] = [gens[str(i)] for i in range(len(gens))]
+    return params, tree["batch_stats"]
+
+
+def _read_jax_tree(path) -> dict:
+    return unpackb((Path(path) / JAX_STATE).read_bytes())
+
+
+def read_jax_state(path) -> tuple[dict, dict]:
+    """-> (params, batch_stats) of a JAX checkpoint directory as numpy
+    trees, with ``params["gens"]`` a list by level, the layout
+    ``convert.hierarchy_state`` takes."""
+    return _jax_state(_read_jax_tree(path))
+
+
 def load_state(path, system, optimizers: bool = True) -> int:
     """Restore a checkpoint into ``system`` (strict keys) and, with
-    ``optimizers``, both Adam optimisers.  Returns the step count."""
+    ``optimizers``, both Adam optimisers.  Returns the step count.  A JAX
+    checkpoint directory loads its parameters and batch-norm statistics;
+    with ``optimizers`` it raises."""
+    path = Path(path)
+    if not (path / STATE).exists() and (path / JAX_STATE).exists():
+        if optimizers:
+            raise ValueError(f"{path} is a JAX checkpoint: its optimiser "
+                             "state is not carried to the port, so it "
+                             "cannot be resumed")
+        tree = _read_jax_tree(path)
+        params, stats = _jax_state(tree)
+        system.load_state_dict(hierarchy_state(params, stats,
+                                               system.cfg.n_layers),
+                               strict=True)
+        return int(np.asarray(tree["step"]))
     state = read_state(path)
     system.load_state_dict(state["model"], strict=True)
     if optimizers:

@@ -4,14 +4,33 @@
       [--field value ...] [--resume CHECKPOINT] [--device cuda|cpu]
   python -m ha2g_torch.cli eval CHECKPOINT [--clips DIR] [--bc]
   python -m ha2g_torch.cli synthesize CHECKPOINT [--clips DIR] [--n N]
-      [--out FILE] [--fused]
+      [--out FILE] [--fused] [--fade_out]
+  python -m ha2g_torch.cli from-text CHECKPOINT --text "..." --wav FILE
+      [--out FILE]
+  python -m ha2g_torch.cli serve CHECKPOINT [--host H] [--port P]
+      [--max_clip_seconds S] [--max_batch N] [--batch_window_ms MS]
+      [--stream_batching]
+  python -m ha2g_torch.cli import-checkpoint REFERENCE.bin OUT_DIR
+  python -m ha2g_torch.cli export-checkpoint CHECKPOINT OUT.bin
+  python -m ha2g_torch.cli import-evalnet REFERENCE.bin OUT_DIR
+
+A CHECKPOINT is a directory written by the port (``state.pt``) or by the
+JAX package (``state.msgpack``): synthesize, eval, from-text, serve and
+export-checkpoint read either; ``train --resume`` needs the port's, which
+carries the optimiser state.  ``import-checkpoint`` turns a reference
+hierarchy ``.bin`` into a port checkpoint (other families raise: they
+are not ported yet), ``export-checkpoint`` writes a hierarchy or an FGD
+embedder directory as a reference ``.bin``, and ``import-evalnet`` turns a
+reference FGD embedder ``.bin`` into a directory ``eval_net_path`` can
+name.  ``from-text`` needs ``--wav`` (16 kHz mono) and spreads the words
+evenly over it (no TTS, no forced alignment).
 
 Data paths in a config are a clip-storage directory (data/storage.py) or
 "synthetic" / "none" / empty, a built-in synthetic set; any other path
 that does not exist raises, as does a named ``wordembed_path``.
 ``eval_net_path`` names an FGD embedder saved by
 ``checkpoint.save_embedder``; without one the trainer selects checkpoints
-by the validation loss.  Everything runs on CUDA unless ``--device cpu``
+by the validation loss.  Every command runs on CUDA unless ``--device cpu``
 is given; without CUDA and without it, the commands raise.
 """
 
@@ -146,7 +165,8 @@ def cmd_train(argv: list[str]) -> int:
 
 
 def load_checkpoint_system(checkpoint: str, device):
-    """-> (cfg, lang, speaker, system) with the checkpoint's parameters."""
+    """-> (cfg, lang, speaker, system) with the parameters of a port or a
+    JAX checkpoint directory."""
     from ha2g_torch import checkpoint as ckpt
     from ha2g_torch.train.loop import build_system
     cfg, _ = ckpt.load_config(checkpoint)
@@ -191,7 +211,7 @@ def cmd_synthesize(argv: list[str]) -> int:
     """Synthesis from a checkpoint on the first ``--n`` clips of a clip set
     (reference synthesize_hierarchy.py from_db_clip); writes dir_vec and
     audio to ``--out``."""
-    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.synthesis import fade_out_to_mean, make_synthesizer
 
     p = argparse.ArgumentParser(prog="ha2g_torch.cli synthesize")
     p.add_argument("checkpoint")
@@ -200,6 +220,8 @@ def cmd_synthesize(argv: list[str]) -> int:
     p.add_argument("--out", default="synthesis_out.npz")
     p.add_argument("--fused", action="store_true",
                    help="the audio encoder once over all windows")
+    p.add_argument("--fade_out", action="store_true",
+                   help="append the fade to the mean pose")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     device = _device(a.device)
@@ -215,13 +237,182 @@ def cmd_synthesize(argv: list[str]) -> int:
                       np.int64)
     run = synth.generate_fused if a.fused else synth.generate
     out = run(audio, words, lang, vids)
+    if a.fade_out:
+        out = np.stack([fade_out_to_mean(r, cfg, 0.0) for r in out])
     np.savez(a.out, dir_vec=out, audio=audio)
     print(f"wrote {a.out}: {out.shape}")
     return 0
 
 
+def read_wav(path) -> np.ndarray:
+    """A 16 kHz mono 16-bit WAV file -> float32 samples (x / 32767, as
+    the JAX command reads it)."""
+    import wave
+    with wave.open(str(path), "rb") as w:
+        if (w.getframerate(), w.getnchannels(), w.getsampwidth()) != \
+                (16000, 1, 2):
+            raise ValueError(f"{path}: need 16 kHz mono 16-bit PCM, got "
+                             f"{w.getframerate()} Hz, {w.getnchannels()} "
+                             f"channels, {8 * w.getsampwidth()} bits")
+        pcm = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    return pcm.astype(np.float32) / 32767.0
+
+
+def cmd_from_text(argv: list[str]) -> int:
+    """Gestures for a transcript spoken in a WAV file (reference
+    synthesize.py:273-338): the words spread evenly over the audio, one
+    clip, speaker 0, faded out to the mean pose; writes dir_vec and audio
+    to ``--out``."""
+    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.tts_align import uniform_align
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli from-text")
+    p.add_argument("checkpoint")
+    p.add_argument("--text", required=True)
+    p.add_argument("--wav", required=True, help="16 kHz mono 16-bit WAV "
+                   "(text-to-speech is not ported)")
+    p.add_argument("--out", default="from_text_out.npz")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    cfg, lang, speaker, system = load_checkpoint_system(a.checkpoint, device)
+    audio = read_wav(a.wav)[None]
+    words = uniform_align(a.text, audio.shape[1] / 16000.0)
+    synth = make_synthesizer(system, system.state_dict())
+    out = synth.generate(audio, [words], lang, np.zeros(1, np.int64),
+                         fade_out=True)
+    np.savez(a.out, dir_vec=out, audio=audio)
+    print(f"wrote {a.out}: {out.shape}")
+    return 0
+
+
+def cmd_serve(argv: list[str]) -> int:
+    """The warm model behind the HTTP/JSON API of ``serve.py``."""
+    from ha2g_torch.serve import serve_forever
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli serve")
+    p.add_argument("checkpoint")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8017)
+    p.add_argument("--max_clip_seconds", type=float, default=20.0)
+    p.add_argument("--max_batch", type=int, default=16)
+    p.add_argument("--batch_window_ms", type=float, default=30.0)
+    p.add_argument("--no_low_latency", action="store_true",
+                   help="accepted for the JAX command line; selects "
+                        "nothing here")
+    p.add_argument("--stream_batching", action="store_true",
+                   help="batch ready windows of concurrent live streams")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    serve_forever(a.checkpoint, a.host, a.port,
+                  max_clip_seconds=a.max_clip_seconds,
+                  max_batch=a.max_batch, batch_window_ms=a.batch_window_ms,
+                  low_latency=not a.no_low_latency,
+                  stream_batching=a.stream_batching, device=_device(a.device))
+    return 0
+
+
+def cmd_import_checkpoint(argv: list[str]) -> int:
+    """A reference hierarchy ``.bin`` -> a port checkpoint directory, with
+    its config (``ref_routing_compat`` on for TED Expressive) and
+    vocabularies, loaded strictly into a freshly built system."""
+    from ha2g_torch import reference_ckpt as rc
+    from ha2g_torch.checkpoint import save_checkpoint
+    from ha2g_torch.train.loop import build_system
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli import-checkpoint")
+    p.add_argument("bin_path")
+    p.add_argument("out_dir")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    ckpt = rc.load_reference_checkpoint(a.bin_path)
+    cfg = rc.config_from_reference_args(ckpt["args"])
+    if cfg.model != "hierarchy":
+        raise NotImplementedError(
+            f"model {cfg.model!r}: importing this family is not ported yet "
+            "(ROADMAP A.5)")
+    lang = rc.vocab_from_pickled(ckpt["lang_model"])
+    speaker = rc.vocab_from_pickled(ckpt["speaker_model"])
+    system = build_system(cfg, lang.n_words, max(speaker.n_words, 1),
+                          device=device)
+    system.load_state_dict(rc.import_hierarchy_checkpoint(
+        ckpt, cfg.skeleton.n_levels), strict=True)
+    save_checkpoint(a.out_dir, system, cfg, lang, speaker,
+                    extra={"epoch": int(ckpt.get("epoch", 0)),
+                           "imported_from": str(a.bin_path)})
+    print(f"imported {a.bin_path} -> {a.out_dir} "
+          f"({len(system.state_dict())} tensors)")
+    return 0
+
+
+def cmd_export_checkpoint(argv: list[str]) -> int:
+    """A hierarchy checkpoint directory (port or JAX) or an FGD embedder
+    directory -> the reference's ``.bin`` layout."""
+    import torch
+    from ha2g_torch import reference_ckpt as rc
+    from ha2g_torch.checkpoint import load_config, load_embedder
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli export-checkpoint")
+    p.add_argument("checkpoint")
+    p.add_argument("out_bin")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    cfg, extra = load_config(a.checkpoint)
+    epoch = int(extra.get("epoch", 0))
+    if cfg.model == "gesture_autoencoder":
+        cfg, state = load_embedder(a.checkpoint)
+        ckpt = rc.export_embedder_checkpoint(state, cfg, epoch)
+        what = f"FGD embedder, pose_dim {cfg.pose_dim}"
+    else:
+        cfg, lang, speaker, system = load_checkpoint_system(a.checkpoint,
+                                                            device)
+        ckpt = rc.export_hierarchy_checkpoint(system.state_dict(), cfg, lang,
+                                              speaker, epoch)
+        what = f"hierarchy, {cfg.skeleton.n_levels} gen_dicts"
+    torch.save(ckpt, a.out_bin)
+    print(f"wrote {a.out_bin} ({what})")
+    return 0
+
+
+def cmd_import_evalnet(argv: list[str]) -> int:
+    """A reference FGD embedder ``.bin`` -> an embedder directory
+    (``checkpoint.save_embedder``): EmbeddingNet from ``gen_dict`` for
+    pose_dim 27, MotionAE from ``motion_ae`` for 126
+    (embedding_space_evaluator.py:27-34)."""
+    from ha2g_torch import reference_ckpt as rc
+    from ha2g_torch.checkpoint import save_embedder
+    from ha2g_torch.config import Config
+    from ha2g_torch.eval.fgd import make_embedder
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli import-evalnet")
+    p.add_argument("bin_path")
+    p.add_argument("out_dir")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+
+    pose_dim, latent_dim, state = rc.import_embedder_checkpoint(
+        rc.load_reference_checkpoint(a.bin_path))
+    net = make_embedder(pose_dim, 34, latent_dim).to(device)
+    net.load_state_dict(state, strict=True)
+    save_embedder(a.out_dir, net, Config(
+        model="gesture_autoencoder",
+        dataset="ted_expressive" if pose_dim == 126 else "ted_gesture",
+        pose_dim=pose_dim, n_poses=34, latent_dim=latent_dim))
+    print(f"imported eval net {a.bin_path} -> {a.out_dir}")
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "eval": cmd_eval,
-            "synthesize": cmd_synthesize}
+            "synthesize": cmd_synthesize, "from-text": cmd_from_text,
+            "serve": cmd_serve, "import-checkpoint": cmd_import_checkpoint,
+            "export-checkpoint": cmd_export_checkpoint,
+            "import-evalnet": cmd_import_evalnet}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ctypes.  Libraries go
 to ``ha2g_torch/_build/<hash of the source>/`` inside the checkout, so a
 changed source builds anew and an unchanged one is reused.  Nothing here
-runs at import time.
+runs at import time.  One lock serialises building and loading, so threads
+that first use a kernel together build it once; a build writes its
+library to a temporary file named by process and thread before moving it
+into place.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -22,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[Path, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -46,13 +51,18 @@ def build(sources) -> dict[Path, str]:
     """Compile every source whose library is missing, all nvcc processes
     started together.  Returns {source: nvcc output (ptxas resource lines)}
     for the ones built; raises if any build fails."""
+    with _lock:
+        return _build(sources)
+
+
+def _build(sources) -> dict[Path, str]:
     procs = {}
     for src in sources:
         lib = library_path(src)
         if lib.exists():
             continue
         lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
@@ -73,9 +83,10 @@ def build(sources) -> dict[Path, str]:
 
 def load(source: Path) -> ctypes.CDLL:
     """The loaded library of one source, built on first use."""
-    lib = _loaded.get(source)
-    if lib is None:
-        build([source])
-        lib = ctypes.CDLL(str(library_path(source)))
-        _loaded[source] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(library_path(source)))
+            _loaded[source] = lib
+        return lib

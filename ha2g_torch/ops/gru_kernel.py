@@ -6,7 +6,7 @@ and backward.
 ``ha2g_tpu/ops/pallas_gru.py::_kernel``) on CUDA tensors, and its plain
 PyTorch version ``gru_recurrence_plain`` on CPU tensors.  A CUDA tensor
 either reaches the kernel or raises.  ``gru_recurrence.launches`` counts
-kernel launches.
+kernel launches (under a lock: serving launches from several threads).
 
 Layout (same as the TPU kernel): xp (T, 2, B, 3H) input projections with
 direction 1 already time-reversed, h0 (2, B, H), w_hh (2, H, 3H),
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ from ha2g_torch import kernels
 
 SOURCE = kernels.CSRC / "gru_recurrence.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
 
 # the cluster split, as csrc/gru_recurrence.cu computes it
 CLUSTER = 8            # CTAs per cluster
@@ -219,7 +221,8 @@ def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
     _launch("gru_recurrence", _lib().ha2g_gru_recurrence, xp.device,
             xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             out.data_ptr(), T, B, H, _DTYPE_CODES[xp.dtype])
-    gru_recurrence.launches += 1
+    with _count_lock:
+        gru_recurrence.launches += 1
     return out
 
 

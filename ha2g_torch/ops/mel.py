@@ -9,6 +9,14 @@ window-folded DFT basis and the mel projection a second one.
 ``power_to_db`` references every clip to its OWN maximum, as librosa does
 on one clip at a time; a batch-wide maximum would make each clip's
 features depend on the loudest clip in the batch.
+
+``log_mel_abs`` is the log-mel before that reference, for the live stream
+(``synthesis.GestureStream``), which applies a running reference of its
+own; with ``center=False`` it frames a hop-aligned segment as it is, so a
+segment with real context on both sides gives the frames of the whole
+clip's transform.  Both paths compute frames with one function
+(``_mel_power``).  ``mulaw_encode_np`` / ``mulaw_decode_np`` /
+``pcm_to_float_np`` are the host-side codecs of the compact wire formats.
 """
 
 from __future__ import annotations
@@ -112,6 +120,32 @@ def log_mel_np(y: np.ndarray, n_fft: int = N_FFT, hop: int = HOP,
     return np.maximum(log_spec, -80.0).T
 
 
+def mulaw_encode_np(x: np.ndarray) -> np.ndarray:
+    """float waveform in [-1, 1] -> uint8 G.711 mu-law bytes (the
+    continuous-mu approximation), for clients and tests."""
+    x = np.clip(np.asarray(x, np.float32), -1.0, 1.0)
+    y = np.sign(x) * np.log1p(_MULAW_MU * np.abs(x)) / np.log1p(_MULAW_MU)
+    return ((y + 1.0) / 2.0 * _MULAW_MU + 0.5).astype(np.uint8)
+
+
+def mulaw_decode_np(u8: np.ndarray) -> np.ndarray:
+    """Host twin of ``mulaw_decode`` (the same formula)."""
+    y = np.asarray(u8, np.uint8).astype(np.float32) * (2.0 / _MULAW_MU) - 1.0
+    return np.sign(y) * (np.power(1.0 + _MULAW_MU, np.abs(y)) - 1.0) \
+        / _MULAW_MU
+
+
+def pcm_to_float_np(samples: np.ndarray) -> np.ndarray:
+    """Any wire sample format to float32 on the host: int16 PCM (x/32768,
+    the soundfile convention), uint8 mu-law, or float."""
+    samples = np.asarray(samples)
+    if samples.dtype == np.int16:
+        return samples.astype(np.float32) / 32768.0
+    if samples.dtype == np.uint8:
+        return mulaw_decode_np(samples)
+    return samples.astype(np.float32)
+
+
 def mulaw_decode(u8: torch.Tensor) -> torch.Tensor:
     """uint8 G.711 mu-law bytes -> float32 waveform in [-1, 1]."""
     y = u8.to(torch.float32) * (2.0 / _MULAW_MU) - 1.0
@@ -119,14 +153,13 @@ def mulaw_decode(u8: torch.Tensor) -> torch.Tensor:
         / _MULAW_MU
 
 
-def batched_log_mel(y: torch.Tensor) -> torch.Tensor:
-    """(B, n_samples) float32 -> (B, n_mels, n_frames) log-mel in dB,
-    each clip referenced to its own maximum and floored 80 dB below it."""
-    if y.dim() != 2:
-        raise ValueError(f"expected (B, n_samples) audio, got {tuple(y.shape)}")
-    y = y.to(torch.float32)
+def _mel_power(y: torch.Tensor, center: bool) -> torch.Tensor:
+    """(B, n_samples) float32 -> mel power (B, n_frames, n_mels).  With
+    hop = n_fft / 2 a frame is two adjacent hop chunks; ``center`` pads
+    n_fft / 2 reflected samples at both ends first (librosa center=True)."""
     B = y.shape[0]
-    yp = F.pad(y[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0]
+    yp = F.pad(y[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0] \
+        if center else y
     n_chunks = yp.shape[-1] // HOP
     chunks = yp[:, :n_chunks * HOP].reshape(B, n_chunks, HOP)
     frames = torch.cat([chunks[:, :-1], chunks[:, 1:]], dim=-1)
@@ -134,10 +167,29 @@ def batched_log_mel(y: torch.Tensor) -> torch.Tensor:
     ri = frames @ basis
     n_bins = fb.shape[0]
     re, im = ri[..., :n_bins], ri[..., n_bins:]
-    mel = (re * re + im * im) @ fb
+    return (re * re + im * im) @ fb
+
+
+def batched_log_mel(y: torch.Tensor) -> torch.Tensor:
+    """(B, n_samples) float32 -> (B, n_mels, n_frames) log-mel in dB,
+    each clip referenced to its own maximum and floored 80 dB below it."""
+    if y.dim() != 2:
+        raise ValueError(f"expected (B, n_samples) audio, got {tuple(y.shape)}")
+    mel = _mel_power(y.to(torch.float32), center=True)
     log_spec = 10.0 * torch.log10(torch.clamp_min(mel, 1e-10))
     log_spec = log_spec - log_spec.amax(dim=(1, 2), keepdim=True)
     return torch.clamp_min(log_spec, -80.0).transpose(1, 2)
+
+
+def log_mel_abs(y: torch.Tensor, center: bool = True) -> torch.Tensor:
+    """One clip's UN-referenced log-mel ``10 log10(max(mel, 1e-10))``:
+    (n_samples,) -> (n_mels, n_frames) float32, without the per-clip
+    maximum subtracted and without the 80 dB floor (JAX
+    ops/mel.py::log_mel_abs)."""
+    if y.dim() != 1:
+        raise ValueError(f"expected (n_samples,) audio, got {tuple(y.shape)}")
+    mel = _mel_power(y.to(torch.float32)[None], center=center)[0]
+    return (10.0 * torch.log10(torch.clamp_min(mel, 1e-10))).T
 
 
 def batched_log_mel_i16(pcm: torch.Tensor) -> torch.Tensor:

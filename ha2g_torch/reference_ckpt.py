@@ -1,0 +1,206 @@
+"""Checkpoints of the reference PyTorch code (``.bin`` files), both ways,
+for the hierarchy and the FGD embedders.
+
+The port's copy of the hierarchy and embedder parts of
+``ha2g_tpu/import_torch.py`` (loading, ``vocab_from_pickled``,
+``config_from_reference_args``, ``import_hierarchy_checkpoint``) and
+``ha2g_tpu/export_torch.py`` (``export_hierarchy_checkpoint``,
+``export_evalnet_checkpoint``, ``_vocab_namespace``, ``_args_namespace``).
+
+A reference checkpoint is a ``torch.save`` dict (reference train.py:232-243):
+``args`` (an argparse Namespace), ``epoch``, ``lang_model`` /
+``speaker_model`` (pickled ``model.vocab.Vocab`` objects), ``pose_dim``,
+``gen_dict_1`` .. ``gen_dict_L``, ``audio_dict``, ``text_dict`` and
+``dis_dict``.  The port's state dict already uses the reference's key
+names, so the weights move by prefix alone: ``audio_dict`` <-> ``audio.``,
+``text_dict`` <-> ``text.``, ``dis_dict`` <-> ``dis.``, ``gen_dict_{l}``
+<-> ``gens.{l-1}.``; a leading ``module.`` (DataParallel) is stripped.
+An FGD embedder's file holds ``gen_dict`` (EmbeddingNet, pose_dim 27) or
+``motion_ae`` and ``latent_dim`` (MotionAE, pose_dim 126).
+
+What the port writes holds only torch tensors, numpy arrays and
+``types.SimpleNamespace`` objects, so the reference code loads it with
+torch and numpy alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import types
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ha2g_torch.config import Config
+from ha2g_torch.data.vocab import SOS_TOKEN, Vocab
+
+# modules whose pickled ``Vocab`` the reference's checkpoints name
+_VOCAB_MODULES = ("model.vocab", "utils.vocab_utils")
+
+
+class _VocabShim:
+    """Stand-in for the reference's ``Vocab`` while unpickling: keeps the
+    attributes, needs none of the reference's code."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module in _VOCAB_MODULES and name == "Vocab":
+            return _VocabShim
+        return super().find_class(module, name)
+
+
+# the ``pickle_module`` torch.load unpickles with
+_PICKLE = types.SimpleNamespace(Unpickler=_Unpickler, load=pickle.load,
+                                __name__="ha2g_torch.reference_ckpt")
+
+
+def load_reference_checkpoint(path) -> dict:
+    """``torch.load`` a reference ``.bin`` onto the CPU, its pickled
+    ``Vocab`` objects read into attribute bags (no module of the reference
+    is needed, and ``sys.modules`` is left as it is)."""
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_PICKLE)
+
+
+def _strip_module_prefix(sd: dict) -> dict:
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def vocab_from_pickled(obj) -> Vocab:
+    """The port's Vocab from a pickled reference Vocab's attributes
+    (word2index / index2word / n_words / word_embedding_weights)."""
+    index2word = {int(k): w for k, w in obj.index2word.items()}
+    word2index = dict(obj.word2index)
+    v = Vocab(getattr(obj, "name", "words"),
+              insert_default_tokens="<SOS>" in word2index
+              or index2word.get(SOS_TOKEN) == "<SOS>")
+    v.word2index = word2index
+    v.index2word = index2word
+    v.word2count = dict(getattr(obj, "word2count", {}))
+    v.n_words = int(obj.n_words)
+    wev = getattr(obj, "word_embedding_weights", None)
+    if wev is not None:
+        v.word_embedding_weights = np.asarray(wev, np.float32)
+    return v
+
+
+def config_from_reference_args(args_obj) -> Config:
+    """The reference's embedded argparse Namespace (train_utils.py:172) as
+    the port's Config; an Expressive hierarchy turns on
+    ``ref_routing_compat`` (the reference's pre-seq head-fill layout)."""
+    d = dict(args_obj) if isinstance(args_obj, dict) else dict(vars(args_obj))
+    d.setdefault("model", "hierarchy")
+    d["dataset"] = "ted_expressive" if d.get("pose_dim") == 126 \
+        else "ted_gesture"
+    for k in ("mean_dir_vec", "mean_pose"):
+        if d.get(k) is not None:
+            d[k] = [float(x) for x in np.asarray(d[k], np.float32).ravel()]
+    for k in ("train_data_path", "val_data_path", "test_data_path"):
+        if isinstance(d.get(k), list):
+            d[k] = d[k][0] if d[k] else ""
+    if d["model"] == "hierarchy" and d["dataset"] == "ted_expressive":
+        d["ref_routing_compat"] = True
+    return Config.from_dict(d)
+
+
+def _prefixes(n_levels: int) -> list[tuple[str, str]]:
+    """(reference dict, port prefix) pairs of a hierarchy checkpoint."""
+    return [("audio_dict", "audio."), ("text_dict", "text."),
+            ("dis_dict", "dis.")] + \
+        [(f"gen_dict_{level + 1}", f"gens.{level}.")
+         for level in range(n_levels)]
+
+
+def _tensor(v) -> torch.Tensor:
+    t = torch.as_tensor(v).detach().cpu()
+    return (t.float() if t.is_floating_point() else t).contiguous().clone()
+
+
+def import_hierarchy_checkpoint(ckpt: dict, n_levels: int) -> dict:
+    """A reference hierarchy checkpoint dict -> the port's state dict, for
+    ``load_state_dict(strict=True)``."""
+    sd = {}
+    for name, prefix in _prefixes(n_levels):
+        for k, v in _strip_module_prefix(ckpt[name]).items():
+            sd[prefix + k] = _tensor(v)
+    return sd
+
+
+def import_embedder_checkpoint(ckpt: dict) -> tuple[int, int, dict]:
+    """A reference FGD embedder checkpoint -> (pose_dim, latent_dim, state
+    dict of the port's ``eval.fgd.make_embedder`` net)."""
+    pose_dim = int(ckpt["pose_dim"])
+    if pose_dim == 126:
+        latent_dim, sd = int(ckpt.get("latent_dim", 128)), ckpt["motion_ae"]
+    else:
+        latent_dim, sd = 128, ckpt["gen_dict"]
+    return pose_dim, latent_dim, {k: _tensor(v) for k, v in
+                                  _strip_module_prefix(sd).items()}
+
+
+def _vocab_namespace(vocab: Optional[Vocab]):
+    """Duck type of the reference's ``model.vocab.Vocab``: the attributes
+    its synthesize and train code read (vocab.py:8-84)."""
+    if vocab is None:
+        return None
+    return types.SimpleNamespace(
+        name=vocab.name, word2index=dict(vocab.word2index),
+        word2count=dict(vocab.word2count), index2word=dict(vocab.index2word),
+        n_words=vocab.n_words,
+        word_embedding_weights=(
+            None if vocab.word_embedding_weights is None
+            else np.asarray(vocab.word_embedding_weights)))
+
+
+def _args_namespace(cfg: Config) -> types.SimpleNamespace:
+    """The Config as the reference's args Namespace (the field names follow
+    parse_args.py; ``config_from_reference_args`` inverts it)."""
+    d = dataclasses.asdict(cfg)
+    for k in ("train_data_path", "val_data_path", "test_data_path"):
+        if isinstance(d.get(k), str):
+            d[k] = [d[k]]     # the reference keeps these as lists
+    return types.SimpleNamespace(**d)
+
+
+def export_hierarchy_checkpoint(state: dict, cfg: Config,
+                                lang: Optional[Vocab] = None,
+                                speaker: Optional[Vocab] = None,
+                                epoch: int = 0) -> dict:
+    """The port's hierarchy state dict -> the reference's checkpoint dict
+    (train.py:232-243 / train_expressive.py:298-304)."""
+    ckpt: dict[str, Any] = {
+        "args": _args_namespace(cfg), "epoch": int(epoch),
+        "lang_model": _vocab_namespace(lang),
+        "speaker_model": _vocab_namespace(speaker),
+        "pose_dim": int(cfg.pose_dim)}
+    taken = 0
+    for name, prefix in _prefixes(cfg.skeleton.n_levels):
+        ckpt[name] = {k[len(prefix):]: _tensor(v) for k, v in state.items()
+                      if k.startswith(prefix)}
+        taken += len(ckpt[name])
+    if taken != len(state):
+        raise ValueError(f"{len(state) - taken} keys of the state dict map "
+                         "to no reference dict")
+    return ckpt
+
+
+def export_embedder_checkpoint(state: dict, cfg: Config,
+                               epoch: int = 0) -> dict:
+    """An FGD embedder's state dict -> the reference's evaluator layout
+    (embedding_space_evaluator.py:27-34)."""
+    ckpt = {"args": _args_namespace(cfg), "epoch": int(epoch),
+            "pose_dim": int(cfg.pose_dim)}
+    sd = {k: _tensor(v) for k, v in state.items()}
+    if cfg.pose_dim == 126:
+        ckpt["motion_ae"] = sd
+        ckpt["latent_dim"] = int(cfg.latent_dim)
+    else:
+        ckpt["gen_dict"] = sd
+    return ckpt

@@ -16,6 +16,12 @@ Two loops compute the same thing:
 Every GRU recurrence goes through kernel B1 on CUDA.  The speaker-z noise
 comes from a ``torch.Generator`` (seed 0 when none is given), drawn in
 window order and level order by both loops.
+
+``GestureStream`` (``HierarchySynthesizer.stream``) runs the same window
+step on audio that arrives in chunks, one window behind the live edge;
+``fade_out_to_mean`` is the reference's quadratic fade to the mean pose.
+Every entry point runs under ``torch.inference_mode``, which is per
+thread: the serving layer calls them from several threads.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ import torch.nn.functional as F
 from ha2g_torch.config import Config
 from ha2g_torch.data.dataset import spectrogram_length_for
 from ha2g_torch.data.vocab import Vocab
-from ha2g_torch.ops.mel import (HOP, batched_log_mel, batched_log_mel_i16,
-                                batched_log_mel_mulaw)
+from ha2g_torch.ops.mel import (HOP, N_FFT, batched_log_mel,
+                                batched_log_mel_i16, batched_log_mel_mulaw,
+                                log_mel_abs, pcm_to_float_np)
 from ha2g_torch.ops.precision import resolve_dtype
 from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train.cascade import run_cascade
@@ -86,6 +93,10 @@ def _cross_fade(prev_tail: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 class HierarchySynthesizer:
     """Window loop over a HierarchySystem whose parameters are ``state``."""
 
+    # the window step reads the spectrogram, not the raw waveform
+    uses_spec = True
+    uses_audio = False
+
     def __init__(self, system, state: dict):
         system.load_state_dict(state, strict=True)
         system.eval()
@@ -100,11 +111,25 @@ class HierarchySynthesizer:
         return generator if generator is not None \
             else torch.Generator().manual_seed(0)
 
+    @torch.inference_mode()
     def window_step(self, spec_w, text_w, carry, vids, generator):
         """One window: spec_w (B, 128, S), text_w (B, T), carry
         (B, n_pre, pose_dim), vids (B,) -> float32 (B, T, pose_dim)."""
         blend = self.system.audio(spec_w, vids, self.dtype)[-1]
         return self._cascade_step(text_w, blend, carry, vids, generator)
+
+    def run_window(self, inputs: dict, generator: torch.Generator
+                   ) -> np.ndarray:
+        """``window_step`` on host arrays: inputs {"spec_w", "text_w",
+        "carry", "vids"} as numpy -> float32 numpy (B, T, pose_dim).  The
+        stream's window call, and the one the serving layer batches."""
+        dev = self.device
+        out = self.window_step(
+            torch.from_numpy(np.ascontiguousarray(inputs["spec_w"])).to(dev),
+            torch.as_tensor(inputs["text_w"], device=dev).long(),
+            torch.from_numpy(np.ascontiguousarray(inputs["carry"])).to(dev),
+            torch.as_tensor(inputs["vids"], device=dev).long(), generator)
+        return out.cpu().numpy()
 
     def _cascade_step(self, text_w, blend_w, carry, vids, generator):
         """Level cascade on precomputed blend features for one window."""
@@ -130,10 +155,14 @@ class HierarchySynthesizer:
     @torch.inference_mode()
     def generate(self, audio: np.ndarray, words_per_clip: Sequence,
                  lang: Vocab, vids: np.ndarray,
-                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+                 generator: Optional[torch.Generator] = None,
+                 fade_out: bool = False) -> np.ndarray:
         """audio (B, n_samples) float32, int16 or uint8 mu-law;
         words_per_clip: B lists of (word, start, end); vids (B,) ->
-        (B, total_frames, pose_dim) float32."""
+        (B, total_frames, pose_dim) float32.  ``fade_out`` appends the
+        fade to the mean pose (``fade_out_to_mean``; a hierarchy reads no
+        raw audio, so its end padding is 0 s and the fade adds
+        2 * n_pre_poses frames)."""
         cfg = self.cfg
         generator = self._generator(generator)
         B, n_samples = np.shape(audio)
@@ -164,7 +193,20 @@ class HierarchySynthesizer:
                 out = torch.cat([_cross_fade(last[:, -n:], out[:, :n]),
                                  out[:, n:]], dim=1)
             pieces.append(out)
-        return torch.cat(pieces, dim=1).cpu().numpy()
+        result = torch.cat(pieces, dim=1).cpu().numpy()
+        if fade_out:
+            result = np.stack([fade_out_to_mean(r, cfg, 0.0) for r in result])
+        return result
+
+    def stream(self, lang: Vocab, vid: int,
+               total_seconds: Optional[float] = None,
+               generator: Optional[torch.Generator] = None,
+               db_ref: Optional[float] = None,
+               executor=None) -> "GestureStream":
+        """A live synthesis stream over one audio source (GestureStream)."""
+        return GestureStream(self, lang, vid, total_seconds=total_seconds,
+                             generator=generator, db_ref=db_ref,
+                             executor=executor)
 
     # ---- fused loop -------------------------------------------------------
     def prepare_fused(self, words_per_clip, lang: Vocab, vids: np.ndarray,
@@ -226,6 +268,7 @@ class HierarchySynthesizer:
                                     dim=1))
         return torch.cat(pieces, dim=1).cpu().numpy()
 
+    @torch.inference_mode()
     def generate_fused(self, audio: np.ndarray, words_per_clip, lang: Vocab,
                        vids: np.ndarray,
                        generator: Optional[torch.Generator] = None
@@ -250,3 +293,212 @@ def make_synthesizer(system, state: dict, low_latency: bool = False):
         raise ValueError(f"no synthesizer for model {system.cfg.model!r} in "
                          "the port yet")
     return HierarchySynthesizer(system, state)
+
+
+class GestureStream:
+    """Live synthesis over ONE audio stream (JAX synthesis.py:552-764).
+
+    Window i reads the spectrogram slice [s0_i, s0_i + spec_len) and the
+    previous window's carry, so gestures come out while the audio arrives,
+    one window (n_poses frames, ~2.27 s) behind the live edge:
+
+        stream = synth.stream(lang, vid=3)
+        for chunk, new_words in source:          # any chunk sizes
+            frames = stream.feed(chunk, words=new_words)   # (n_new, D)
+        frames = stream.finish()
+
+    * Window layout: with ``total_seconds`` known (file playback, TTS) the
+      batch path's layout is used; unknown (live), window i starts at the
+      sample-exact spec frame ``(i * stride_samples) // hop``, within one
+      32 ms spec frame of the batch layout.
+    * Mel frames: an interior frame sees only real samples, so frames are
+      computed as the audio comes, from hop-aligned segments
+      (``log_mel_abs(center=False)``); the reflect padding of the clip's
+      two ends is taken on the host.  A segment's DFT product has another
+      row count than the whole clip's, so a frame may differ from the
+      batch path's in its last bits (the summation order of the product).
+    * dB reference: librosa's ``ref=np.max`` is the whole clip's peak,
+      unknown live; the stream applies the running peak over the frames
+      so far (or ``db_ref``).  Once the clip's loudest frame has arrived,
+      the features are the batch path's.
+    * Words may arrive as they are recognised; a window uses the words
+      known when it runs, and it runs one spec frame (~32 ms) before its
+      nominal end.
+
+    Window 0 emits its first n_poses - n_pre_poses frames; each later
+    window emits the previous window's held-back n_pre_poses tail
+    cross-faded with its own head (the batch path's blend), then its
+    middle; ``finish`` emits the last tail.  A window's speaker-z noise is
+    drawn from the stream's ``generator`` (CPU, seed 0 when None) in
+    window order, so a stream draws what ``generate`` draws at batch 1.
+    ``executor``, when given, replaces the window call:
+    ``executor(inputs, generator) -> (1, n_poses, pose_dim)`` with
+    ``inputs`` as for ``HierarchySynthesizer.run_window``.
+    """
+
+    def __init__(self, synth: HierarchySynthesizer, lang: Vocab, vid: int,
+                 total_seconds: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None,
+                 db_ref: Optional[float] = None, executor=None):
+        if not synth.uses_spec or synth.uses_audio:
+            raise ValueError("a stream drives spectrogram-windowed models")
+        self.synth = synth
+        self.cfg = cfg = synth.cfg
+        self.lang = lang
+        self.vid = int(vid)
+        self.generator = HierarchySynthesizer._generator(generator)
+        self.unit_time, self.stride_time, _ = _window_layout(cfg, 1.0)
+        self.spec_len = spectrogram_length_for(
+            cfg.n_poses, cfg.motion_resampling_framerate)
+        self.total_seconds = total_seconds
+        if total_seconds is not None:
+            n_total = int(round(total_seconds * SR))
+            self._S_total = n_total // HOP + 1
+            _, _, self._num_sub = _window_layout(cfg, n_total / SR)
+        self._executor = executor
+        self._buf = np.zeros(0, np.float32)
+        self._words: list = []
+        self._frames = np.zeros((128, 0), np.float32)   # absolute log-mel
+        self._ref = -np.inf if db_ref is None else float(db_ref)
+        self._next_w = 0
+        self._carry = np.zeros((1, cfg.n_pre_poses, synth.spec.pose_dim),
+                               np.float32)
+        self._tail: Optional[np.ndarray] = None
+        self._finished = False
+
+    @property
+    def n_samples(self) -> int:
+        """Samples fed so far."""
+        return len(self._buf)
+
+    def _empty(self) -> np.ndarray:
+        return np.zeros((0, self.synth.spec.pose_dim), np.float32)
+
+    def _s0(self, i: int) -> int:
+        if self.total_seconds is not None:
+            return math.floor(i * self.stride_time / self.total_seconds
+                              * self._S_total)
+        return (i * int(round(self.stride_time * SR))) // HOP
+
+    def _extend_frames(self, final: bool) -> None:
+        """Grow the absolute log-mel frames from the buffer.  Frame k of the
+        centred transform covers E[k*hop : k*hop + n_fft] of the signal E
+        extended by n_fft/2 reflected samples at each end; the end's
+        reflection (``final``) adds the last frame."""
+        half = N_FFT // 2
+        n = len(self._buf)
+        have = self._frames.shape[1]
+        want = n // HOP + (1 if final else 0)
+        if want <= have or n <= half:
+            return
+        parts = [self._buf[1:half + 1][::-1], self._buf]
+        if final:
+            parts.append(self._buf[-2:-half - 2:-1])
+        seg = np.concatenate(parts)[have * HOP:(want + 1) * HOP]
+        dev = self.synth.device
+        new = log_mel_abs(torch.from_numpy(seg).to(dev), center=False)
+        self._frames = np.concatenate([self._frames, new.cpu().numpy()],
+                                      axis=1)
+        if self._frames.shape[1] != want:
+            raise AssertionError(f"{self._frames.shape[1]} frames, want "
+                                 f"{want}")
+        self._ref = max(self._ref, float(self._frames.max()))
+
+    def _run_window(self, i: int) -> np.ndarray:
+        cfg = self.cfg
+        n = cfg.n_pre_poses
+        s0 = self._s0(i)
+        s1 = s0 + self.spec_len
+        fr = self._frames
+        if s1 > fr.shape[1]:          # the last window: edge padding
+            fr = np.pad(fr, ((0, 0), (0, s1 - fr.shape[1])), mode="edge")
+        # float32, as the batch path subtracts and floors on the device
+        spec_w = np.maximum(fr[:, s0:s1] - np.float32(self._ref),
+                            np.float32(-80.0))
+        start = i * self.stride_time
+        text_w = frame_aligned_word_indices(
+            self._words, start, start + self.unit_time, cfg.n_poses,
+            self.lang)
+        inputs = {"spec_w": spec_w[None], "text_w": text_w[None],
+                  "carry": self._carry,
+                  "vids": np.asarray([self.vid], np.int64)}
+        run = self._executor or self.synth.run_window
+        out = run(inputs, self.generator)
+        self._carry = out[:, -n:]
+        if self._tail is None:
+            emit = out[0, :-n]
+        else:
+            head = _cross_fade(torch.from_numpy(self._tail)[None],
+                               torch.from_numpy(out[:, :n]))[0].numpy()
+            emit = np.concatenate([head, out[0, n:-n]], axis=0)
+        self._tail = out[0, -n:]
+        self._next_w = i + 1
+        return emit
+
+    def _ready(self, i: int) -> bool:
+        """Are window i's spec frames all made of real samples?"""
+        if self.total_seconds is not None and i >= self._num_sub:
+            return False
+        return (self._s0(i) + self.spec_len) * HOP <= len(self._buf)
+
+    @torch.inference_mode()
+    def feed(self, samples=None, words: Sequence = ()) -> np.ndarray:
+        """Append audio (float32 in [-1, 1], int16 or uint8 mu-law, decoded
+        on the host) and / or word timings; -> the frames that became
+        final, (n_new, pose_dim), possibly none."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        if words:
+            self._words.extend(words)
+        if samples is not None:
+            self._buf = np.concatenate([self._buf, pcm_to_float_np(
+                np.atleast_1d(samples))])
+        outs = []
+        while self._ready(self._next_w):
+            self._extend_frames(final=False)
+            outs.append(self._run_window(self._next_w))
+        return np.concatenate(outs, axis=0) if outs else self._empty()
+
+    @torch.inference_mode()
+    def finish(self) -> np.ndarray:
+        """Run the remaining (edge-padded) windows on the whole buffer and
+        emit the held-back tail."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        self._finished = True
+        if len(self._buf) <= N_FFT // 2:
+            # less audio than one reflect-padded frame
+            return self._tail if self._tail is not None else self._empty()
+        if self.total_seconds is None:
+            self.total_seconds = len(self._buf) / SR
+            self._S_total = len(self._buf) // HOP + 1
+            _, _, self._num_sub = _window_layout(self.cfg, self.total_seconds)
+        self._extend_frames(final=True)
+        outs = []
+        while self._next_w < self._num_sub:
+            outs.append(self._run_window(self._next_w))
+        if self._tail is not None:
+            outs.append(self._tail)
+        return np.concatenate(outs, axis=0) if outs else self._empty()
+
+
+def fade_out_to_mean(out_dir_vec: np.ndarray, cfg: Config,
+                     end_padding_duration_s: float) -> np.ndarray:
+    """Quadratic-fit fade to the mean pose over the zero-padded tail
+    (reference synthesize_hierarchy.py:189-213; JAX synthesis.py:791)."""
+    n_smooth = cfg.n_pre_poses
+    fps = cfg.motion_resampling_framerate
+    start = len(out_dir_vec) - int(end_padding_duration_s * fps)
+    end = start + n_smooth * 2
+    out = out_dir_vec
+    if len(out) < end:
+        out = np.pad(out, [(0, end - len(out)), (0, 0)], mode="constant")
+    out[end - n_smooth:] = 0.0
+    y = out[start:end]
+    x = np.arange(y.shape[0])
+    w = np.ones(len(y))
+    w[0] = w[-1] = 5
+    coeffs = np.polyfit(x, y, 2, w=w)
+    out[start:end] = np.stack(
+        [np.poly1d(coeffs[:, k])(x) for k in range(y.shape[1])], axis=1)
+    return out

@@ -1,7 +1,9 @@
 """The port's command line on the CPU (``--device cpu``) at a narrow
 width: ``train`` for two epochs on stored synthetic clips with a seeded
-FGD embedder, ``--resume``, ``eval --bc`` and ``synthesize``; and the
-families that are not ported yet."""
+FGD embedder, ``--resume``, ``eval --bc``, ``synthesize`` (with
+``--fade_out``), ``from-text --wav``, the round trip of a checkpoint and
+of the embedder through ``export-checkpoint`` / ``import-checkpoint`` /
+``import-evalnet``; and the families that are not ported yet."""
 
 import ast
 import contextlib
@@ -9,6 +11,7 @@ import copy
 import functools
 import io
 import json
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -183,7 +186,92 @@ def test_build_system_raises_for_a_baseline_family(model):
         build_system(Config(model=model), 8, 2, device="cpu")
 
 
+def _quiet(argv):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(argv)
+
+
+def test_synthesize_fade_out_and_from_text(run, tmp_path):
+    """``--fade_out`` appends 2 * n_pre_poses frames faded to the mean
+    pose and leaves the rest; ``from-text`` reads a 16 kHz mono WAV,
+    spreads the words over it and fades out."""
+    best = str(run / "out" / "checkpoint_best")
+    outs = {}
+    for name, extra in (("plain", ()), ("faded", ("--fade_out",))):
+        outs[name] = tmp_path / f"{name}.npz"
+        assert _quiet(["synthesize", best, "--n", "2", "--device", "cpu",
+                       "--out", str(outs[name]), *extra]) == 0
+    plain = np.load(outs["plain"])["dir_vec"]
+    faded = np.load(outs["faded"])["dir_vec"]
+    n = plain.shape[1]
+    assert faded.shape == (2, n + 8, 27)
+    np.testing.assert_array_equal(faded[:, :n], plain)
+    np.testing.assert_allclose(faded[:, n:], 0.0, atol=1e-6)
+
+    pcm = (np.random.default_rng(0).normal(size=3 * 16000) * 3000) \
+        .astype("<i2")
+    wav = tmp_path / "speech.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    out = tmp_path / "text.npz"
+    assert _quiet(["from-text", best, "--text", "hello there world",
+                   "--wav", str(wav), "--out", str(out),
+                   "--device", "cpu"]) == 0
+    result = np.load(out)
+    np.testing.assert_array_equal(result["audio"][0],
+                                  pcm.astype(np.float32) / 32767.0)
+    assert result["dir_vec"].shape == (1, 34 + 30 + 8, 27)
+    assert np.isfinite(result["dir_vec"]).all()
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    with pytest.raises(ValueError, match="16 kHz mono"):
+        _quiet(["from-text", best, "--text", "x", "--wav", str(wav),
+                "--device", "cpu"])
+
+
+def test_checkpoint_and_embedder_round_trip_through_reference_bins(
+        run, tmp_path):
+    """``export-checkpoint`` then ``import-checkpoint`` gives back every
+    tensor, the config and the vocabularies of a trained checkpoint; the
+    embedder goes through ``export-checkpoint`` / ``import-evalnet``."""
+    best = run / "out" / "checkpoint_best"
+    assert _quiet(["export-checkpoint", str(best), str(tmp_path / "h.bin"),
+                   "--device", "cpu"]) == 0
+    assert _quiet(["import-checkpoint", str(tmp_path / "h.bin"),
+                   str(tmp_path / "h"), "--device", "cpu"]) == 0
+    want, got = ckpt.read_state(best), ckpt.read_state(tmp_path / "h")
+    assert want["model"].keys() == got["model"].keys()
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    cfg, extra = ckpt.load_config(best)
+    cfg2, extra2 = ckpt.load_config(tmp_path / "h")
+    # the importer reads the means as float32, as the JAX package's does
+    f32 = lambda v: [float(x) for x in np.float32(v)]
+    assert cfg2 == cfg.replace(mean_pose=f32(cfg.mean_pose),
+                               mean_dir_vec=f32(cfg.mean_dir_vec))
+    assert extra2["epoch"] == extra["epoch"]
+    for a, b in zip(ckpt.load_vocabs(best), ckpt.load_vocabs(tmp_path / "h")):
+        assert a.to_dict() == b.to_dict()
+
+    assert _quiet(["export-checkpoint", str(run / "embedder"),
+                   str(tmp_path / "e.bin"), "--device", "cpu"]) == 0
+    assert _quiet(["import-evalnet", str(tmp_path / "e.bin"),
+                   str(tmp_path / "e"), "--device", "cpu"]) == 0
+    (ecfg, want), (ecfg2, got) = (ckpt.load_embedder(run / "embedder"),
+                                  ckpt.load_embedder(tmp_path / "e"))
+    assert ecfg2.pose_dim == ecfg.pose_dim == 27
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
 def test_unknown_command_and_model():
-    assert cli.main(["serve"]) == 1
+    assert cli.main(["doctor"]) == 1
     with pytest.raises(ValueError, match="unknown model"):
         build_system(Config(model="nope"), 8, 2, device="cpu")

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ha2g_torch, and not chip_smoke.py,
-imports JAX or the JAX package (checked with ast, without importing), and
-its entry points (the systems, the evaluator, the trainer, the command
-line) need CUDA unless the caller asks for the CPU."""
+imports JAX, flax, msgpack or the JAX package (checked with ast, without
+importing), and its entry points (the systems, the evaluator, the
+trainer, the serving service, the command line) need CUDA unless the
+caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -12,14 +13,14 @@ import torch
 import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ha2g_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "ha2g_tpu"}
 # what the port may import at module level besides the standard library
 # and itself
 ALLOWED_THIRD_PARTY = {"torch", "numpy", "einops"}
 
 
-# the modules of the serving, training, evaluation and driver slices,
-# which the scan must see
+# the modules of the serving, training, evaluation, trainer and
+# checkpoint-bridge slices, which the scan must see
 PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "synthesis.py", "models/common.py", "models/hierarchy.py",
                 "models/resnet_se.py", "models/tcn.py", "ops/contrastive.py",
@@ -29,7 +30,8 @@ PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "models/motion_ae.py", "eval/fgd.py", "eval/metrics.py",
                 "data/dataset.py", "data/loader.py", "data/storage.py",
                 "data/synthetic.py", "data/vocab.py", "train/loop.py",
-                "utils/average_meter.py")
+                "utils/average_meter.py", "utils/msgpack.py",
+                "reference_ckpt.py", "serve.py", "tts_align.py")
 
 
 def _port_files():
@@ -111,6 +113,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                    device="cpu").system.device.type == "cpu"
     for argv in (["train", "--config", str(ROOT / "configs" /
                                           "hierarchy.yaml")],
-                 ["eval", "checkpoint"], ["synthesize", "checkpoint"]):
+                 ["eval", "checkpoint"], ["synthesize", "checkpoint"],
+                 ["from-text", "checkpoint", "--text", "hi", "--wav",
+                  "a.wav"], ["serve", "checkpoint"],
+                 ["import-checkpoint", "a.bin", "out"],
+                 ["export-checkpoint", "checkpoint", "a.bin"],
+                 ["import-evalnet", "a.bin", "out"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(argv)
+
+    from ha2g_torch.serve import GestureService
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GestureService("checkpoint")
