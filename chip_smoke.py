@@ -71,7 +71,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    percentiles), the fp32 stream against ``generate`` (1e-3) and the
    bf16 one (printed), 8 streams through the stream batcher; ``cli
    serve`` as a process, ``from-text --wav`` and ``synthesize
-   --fade_out``.  B1's launches of every step equal 24 x windows x calls.
+   --fade_out``.  B1's launches of every step equal 24 x windows x calls;
+9. the GAN baselines at full width in bf16
+   (configs_expressive/multimodal_context.yaml and
+   configs/speech2gesture.yaml, batch 128): a warm-up and three GAN steps
+   of each with the launch counts of B1 (forward, backward calls and
+   backward kernel) step by step against the dataflow and B2-B4 at 0,
+   step times, peak memory and a profiled GAN step; an fp32 step of each
+   at a narrow width on the card against the CPU; a 20 s clip at B = 1
+   and 8 through ``generate``; a checkpoint through ``export-checkpoint``
+   / ``import-checkpoint`` (every tensor equal); a warm ``GestureService``
+   and its HTTP API (one request each, bit for bit the direct call on the
+   same padded batch); the fp32 speech2gesture stream against
+   ``generate`` (1e-3) and the multimodal stream refused.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -209,13 +221,20 @@ def _b1_inputs(T, B, H, dtype, seed=0):
 
 
 # B1 shapes held against the plain version: the serving shapes (B = 4 is
-# the service's second bucket) and the train shapes,
+# the service's second bucket) and the train shapes (the baselines' batch
+# 128: the multimodal generator's H = 300, its discriminator's H = 64 on
+# 28 steps),
 # one and several row groups (97: a ragged last group), hidden sizes whose
 # last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48)
 B1_SHAPES = ((34, 1, 300), (34, 4, 300), (34, 8, 300), (34, 16, 300),
              (34, 96, 300), (34, 97, 300), (7, 3, 48), (11, 5, 200),
-             (6, 16, 45))
-B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200))
+             (6, 16, 45), (34, 128, 300), (28, 128, 64))
+B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200), (34, 128, 300),
+                 (28, 128, 64))
+# B1's autograd against autograd through its plain version: the train
+# shapes of the hierarchy (generator and discriminator, batch 96) and of
+# the GAN baselines (batch 128)
+B1_GRAD_SHAPES = ((34, 96, 300), (34, 96, 64), (34, 128, 300), (28, 128, 64))
 
 
 def _b1_check():
@@ -326,10 +345,10 @@ def _b1_grad_check():
     from ha2g_torch.ops.gru_kernel import (gru_recurrence_fn,
                                            gru_recurrence_plain)
     worst = {}
-    for H in (300, 64):
+    for T, B, H in B1_GRAD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            args = _b1_inputs(34, 96, H, dtype, seed=H)
-            ct = torch.randn((34, 2, 96, H), device="cuda", dtype=dtype)
+            args = _b1_inputs(T, B, H, dtype, seed=H)
+            ct = torch.randn((T, 2, B, H), device="cuda", dtype=dtype)
             grads = []
             for fn in (gru_recurrence_fn, gru_recurrence_plain):
                 leaves = [a.detach().clone().requires_grad_() for a in args]
@@ -338,14 +357,14 @@ def _b1_grad_check():
             torch.cuda.synchronize()
             errs = [_rel(g, w) for g, w in zip(*grads)]
             ok = all(np.isfinite(errs)) and max(errs) <= B1_GRAD_REL[dtype]
-            _line("b1-grad-check", T=34, B=96, H=H, dtype=str(dtype)[6:],
+            _line("b1-grad-check", T=T, B=B, H=H, dtype=str(dtype)[6:],
                   rel_err_xp_h0_whh_bhh="/".join(f"{e:.2e}" for e in errs),
                   tol=f"{B1_GRAD_REL[dtype]:.0e}", ok=ok)
             if not ok:
                 raise AssertionError(f"B1 gradient disagrees with autograd "
-                                     f"through its plain version, H={H} "
-                                     f"{dtype}")
-            worst[(H, dtype)] = max(errs)
+                                     f"through its plain version, T={T} "
+                                     f"B={B} H={H} {dtype}")
+            worst[(T, B, H, dtype)] = max(errs)
     return worst
 
 
@@ -1995,6 +2014,410 @@ def _serving(work: Path):
     return paths, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the GAN baselines (multimodal_context, speech2gesture)
+# ---------------------------------------------------------------------------
+
+# the shipped configs at full width (batch 128), bf16, and the gan_on of
+# each step: a warm-up step and three GAN steps (speech2gesture's step has
+# no warm-up: four alike)
+BASELINE_RUNS = (("configs_expressive/multimodal_context.yaml",
+                  (False, True, True, True)),
+                 ("configs/speech2gesture.yaml", (True, True, True, True)))
+BASELINE_AUDIO_LEN = 36267      # round(34 / 15 * 16000): a train window
+
+
+def _baseline_cfg(config, **overrides):
+    from ha2g_torch.config import Config
+    return Config.from_yaml(ROOT / config, **{
+        "compute_dtype": "bfloat16", "eval_net_path": "", **overrides})
+
+
+def _baseline_batch(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    T = cfg.n_poses
+    return {"text": rng.integers(0, N_WORDS, (B, T)),
+            "audio": (rng.normal(size=(B, BASELINE_AUDIO_LEN)) * 0.1)
+            .astype(np.float32),
+            "spec": rng.normal(size=(B, 128, 70)).astype(np.float32),
+            "target": (rng.normal(size=(B, T, cfg.pose_dim)) * 0.2)
+            .astype(np.float32),
+            "vids": rng.integers(0, N_SPEAKERS, (B,))}
+
+
+def _baseline_expected(cfg, gan_on):
+    """Per step of a baseline: B1 forward once a GRU layer a generator
+    call (the D phase's fake, the G forward, the diversity forward with
+    speaker / random z and a positive weight) and once a D layer a D call
+    (D(out) always, D(real) and D(fake) in the D phase); its backward for
+    the G forward, D(out) with the GAN term and both D-phase calls (the
+    diversity forward's output and z are detached by the regulariser, so
+    it takes no backward).  speech2gesture runs no GRU; no contrastive
+    loss in either."""
+    zero = {"b1": 0, "b1_backward": 0, "b1_bwd": 0, "b2": 0, "b3": 0,
+            "b4": 0}
+    if cfg.model != "multimodal_context":
+        return zero
+    L, d_layers = cfg.n_layers, 4
+    d_phase = gan_on and cfg.loss_gan_weight > 0.0
+    div = cfg.z_type in ("speaker", "random") and cfg.loss_reg_weight > 0.0
+    fwd = L * (1 + d_phase + div) + d_layers * (1 + 2 * d_phase)
+    bwd = L + d_layers * (gan_on + 2 * d_phase)
+    return {**zero, "b1": fwd, "b1_backward": bwd, "b1_bwd": bwd}
+
+
+def _baseline_train(config, steps):
+    """Train steps of a baseline at full width: launch counts step by
+    step, finite losses, step times, peak memory, and a profile of one GAN
+    step.  -> the kernels' launch counts over the steps."""
+    from ha2g_torch.train.loop import build_system
+
+    cfg = _baseline_cfg(config)
+    B = cfg.batch_size
+    t0 = time.perf_counter()
+    system = build_system(cfg, N_WORDS, N_SPEAKERS,
+                          generator=torch.Generator().manual_seed(0))
+    _line("baseline-build", config=config, model=cfg.model,
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          params=sum(p.numel() for p in system.parameters()), batch=B,
+          compute_dtype=cfg.compute_dtype, hidden=cfg.hidden_size,
+          gru_layers=cfg.n_layers, batch_keys=",".join(system.batch_keys))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    gated = cfg.model == "multimodal_context"
+    step = (lambda b, g: system.train_step(b, g, gen)) if gated else \
+        (lambda b, g: system.train_step(b, gen))
+    batches = [_baseline_batch(cfg, B, 300 + i) for i in range(len(steps))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = []
+    for i, (gan_on, batch) in enumerate(zip(steps, batches)):
+        before = _read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(batch, gan_on)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = {k: v - before[k] for k, v in _read_counts().items()}
+        want = _baseline_expected(cfg, gan_on)
+        values = {k: float(v) for k, v in metrics.items()}
+        finite = all(np.isfinite(v) for v in values.values())
+        ok = finite and counts == want
+        _line("baseline-step", model=cfg.model, step=i, gan_on=gan_on,
+              ms=f"{ms:.1f}", finite=finite,
+              **{k: f"{v:.4f}" for k, v in values.items()})
+        _line("baseline-launches", model=cfg.model, step=i,
+              **{k: f"{counts[k]}/{want[k]}" for k in want}, ok=ok)
+        if not ok:
+            raise AssertionError(f"{cfg.model} train step {i} (gan_on="
+                                 f"{gan_on}) failed its checks")
+        step_ms.append(ms)
+    main_path = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gan_ms = statistics.median(step_ms[1:])
+    _line("baseline-e2e", model=cfg.model, first_step_ms=f"{step_ms[0]:.1f}",
+          gan_step_ms_median=f"{gan_ms:.1f}", gan_steps=len(step_ms) - 1,
+          samples_per_s=f"{B / gan_ms * 1e3:.1f}",
+          peak_memory_gib=f"{peak:.2f}")
+    kernels = ("b1", "b1_bwd") if gated else ()
+    profiled = _profile(f"baseline_gan_step:{cfg.model}",
+                        lambda: step(_baseline_batch(cfg, B, 400), True),
+                        gan_ms, kernels=kernels)
+    want = _baseline_expected(cfg, True)
+    if profiled is not None and any(profiled[0][k][0] != want[k]
+                                    for k in kernels):
+        raise AssertionError(f"the {cfg.model} GAN step's profile shows "
+                             f"{profiled[0]} kernels, the dataflow {want}")
+    del system
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def _zero_grad_leaf(model: str, key: str) -> bool:
+    """A bias right before a train-mode batch norm: zero true gradient
+    (the norm subtracts it), so either side's is rounding noise."""
+    if model == "multimodal_context":
+        return key in {f"gen.audio_encoder.feat_extractor.{i}.bias"
+                       for i in (0, 3, 6)} | {"dis.pre_conv.0.bias",
+                                              "dis.pre_conv.3.bias"}
+    return (key.endswith(".0.bias") and key != "dis.net.0.bias") or \
+        key == "gen.pre_pose_encoder.0.bias"
+
+
+# a zero-gradient leaf's noise against its layer's weight gradient
+ZERO_GRAD_REL = 1e-3
+
+
+def _baseline_card_vs_cpu(config):
+    """The fp32 train step of a narrow baseline (hidden 64, 2 GRU layers,
+    batch 8; GAN phase on) on the card against the same port on the CPU:
+    the same weights, batch and noise, dropout 0; every loss term and
+    every gradient, the batch-normed audio encoder at the looser bound."""
+    from ha2g_torch.train.loop import build_system
+
+    cfg = _baseline_cfg(config, compute_dtype="float32", hidden_size=64,
+                        n_layers=2, dropout_prob=0.0)
+    systems = []
+    for device in ("cpu", "cuda"):
+        s = build_system(cfg, N_WORDS, N_SPEAKERS, device=device,
+                         generator=torch.Generator().manual_seed(3))
+        if cfg.model == "multimodal_context":
+            s.gen.text_encoder.emb_dropout = 0.0
+            s.dis.gru.dropout = 0.0
+        systems.append(s)
+    cpu, gpu = systems
+    gpu.load_state_dict(cpu.state_dict())
+    batch = _baseline_batch(cfg, 8, 7)
+    if cfg.model == "multimodal_context":
+        rand_vids = torch.from_numpy(np.roll(batch["vids"], 1))
+        got = [s.train_step(batch, True, torch.Generator().manual_seed(4),
+                            rand_vids=rand_vids) for s in systems]
+    else:
+        got = [s.train_step(batch, torch.Generator()) for s in systems]
+    worst_metric = max(abs(float(got[1][k]) / float(got[0][k]) - 1)
+                       for k in got[0])
+    # worst relative error by group over the leaves whose gradient is over
+    # the floor; a leaf fails when it is over its group's bound and
+    # differs by more than the floor
+    worst = {"audio": 0.0, "other": 0.0, "zero": 0.0}
+    failed = []
+    grads = {k: p.grad for k, p in cpu.named_parameters()}
+    bound = {"audio": TRAIN_AUDIO_GRAD_REL, "other": TRAIN_GRAD_REL}
+    for key, p in gpu.named_parameters():
+        want, have = grads[key], p.grad
+        if want is None or have is None:
+            if (want is None) != (have is None):
+                raise AssertionError(f"{key}: gradient on one side only")
+            continue
+        have = have.cpu()
+        if _zero_grad_leaf(cfg.model, key):
+            scale = grads[key[:-len("bias")] + "weight"].double().norm()
+            rel = float(max(have.double().norm(), want.double().norm())
+                        / scale)
+            worst["zero"] = max(worst["zero"], rel)
+            if rel > ZERO_GRAD_REL:
+                failed.append(key)
+            continue
+        group = "audio" if key.startswith("gen.audio_encoder.") else "other"
+        rel = _rel(have, want)
+        if want.double().norm() > TRAIN_GRAD_FLOOR:     # not noise alone
+            worst[group] = max(worst[group], rel)
+        if rel > bound[group] and \
+                (have.double() - want.double()).norm() > TRAIN_GRAD_FLOOR:
+            failed.append(key)
+    ok = (got[0].keys() == got[1].keys()
+          and worst_metric <= TRAIN_METRIC_RTOL and not failed)
+    _line("baseline-fp32-card-vs-cpu", model=cfg.model, hidden=64,
+          gru_layers=2, batch=8, metrics=len(got[0]),
+          metric_rel_err=f"{worst_metric:.2e}",
+          grad_rel_err_audio_encoder=f"{worst['audio']:.2e}",
+          grad_rel_err_other=f"{worst['other']:.2e}",
+          zero_grad_leaves_vs_weight_grad=f"{worst['zero']:.2e}",
+          leaves=len(grads), failed=failed[:4],
+          tol=f"{TRAIN_METRIC_RTOL:.0e}/{TRAIN_AUDIO_GRAD_REL:.0e}/"
+              f"{TRAIN_GRAD_REL:.0e}/{ZERO_GRAD_REL:.0e}", ok=ok)
+    if not ok:
+        raise AssertionError(f"the fp32 {cfg.model} train step on the card "
+                             "disagrees with the CPU")
+
+
+def _baseline_serving(config, work: Path, paths):
+    """A 20 s clip at B = 1 and 8 through ``generate``; a checkpoint through
+    export-checkpoint / import-checkpoint (every tensor equal); a warm
+    GestureService and its HTTP API: one request each, bit for bit the
+    direct ``generate`` on the same padded batch; speech2gesture: an fp32
+    20 s stream against ``generate`` (1e-3); multimodal_context: a stream
+    refused."""
+    import base64
+    import threading
+    import types
+    from ha2g_torch import checkpoint as ckpt
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.serve import GestureService, make_http_server
+    from ha2g_torch.synthesis import _window_layout, make_synthesizer
+    from ha2g_torch.train.loop import build_system
+
+    cfg = _baseline_cfg(config)
+    model = cfg.model
+    key = f"serving:{model}"
+    per_window = cfg.n_layers if model == "multimodal_context" else 0
+    lang = _vocab()
+    speaker = Vocab("vid", insert_default_tokens=False)
+    for i in range(N_SPEAKERS - speaker.n_words):
+        speaker.index_word(f"s{i}")
+    system = build_system(cfg, lang.n_words, speaker.n_words,
+                          generator=torch.Generator().manual_seed(0))
+    synth = make_synthesizer(system, system.state_dict())
+    _, _, W = _window_layout(cfg, SERVE_CLIP_SECONDS)
+    frames = cfg.n_poses + (W - 1) * (cfg.n_poses - cfg.n_pre_poses)
+    e2e = {}
+    for B in (1, 8):
+        audio, words, vids = _requests(B, SERVE_CLIP_SECONDS, 50 + B)
+        b0 = _b1_launches()
+        out = synth.generate(audio, words, lang, vids)
+        paths[key] += _expect_b1(f"{model} generate B={B}", b0,
+                                 W * per_window)
+        ok = out.shape == (B, frames, cfg.pose_dim) and \
+            bool(np.isfinite(out).all())
+        b0 = _b1_launches()
+        e2e[B] = _host_ms(lambda: synth.generate(audio, words, lang, vids),
+                          reps=5, warmup=1)
+        paths[key] += _expect_b1(f"{model} generate B={B} timing", b0,
+                                 6 * W * per_window)
+        _line("baseline-generate", model=model, B=B, windows=W,
+              shape=tuple(out.shape), b1_launches=W * per_window,
+              ms_median_of_5=f"{e2e[B]:.2f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"{model} generate B={B} failed its checks")
+    b0 = _b1_launches()
+    _profile(f"baseline_generate_B8:{model}",
+             lambda: synth.generate(audio, words, lang, vids), e2e[8],
+             kernels=("b1",) if per_window else ())
+    paths[key] += _expect_b1(f"{model} generate B=8 profile", b0,
+                             W * per_window)
+
+    # checkpoints: the port's, a reference .bin and back
+    d = work / model
+    ckpt.save_checkpoint(d / "ckpt", system, cfg, lang, speaker)
+    zero = dict.fromkeys(_read_counts(), 0)
+    _cli_call(["export-checkpoint", str(d / "ckpt"), str(d / "ref.bin")],
+              zero)
+    _cli_call(["import-checkpoint", str(d / "ref.bin"), str(d / "imported")],
+              zero)
+    want = ckpt.read_state(d / "ckpt")["model"]
+    got = ckpt.read_state(d / "imported")["model"]
+    equal = want.keys() == got.keys() and all(
+        torch.equal(got[k], v) for k, v in want.items())
+    _line("baseline-ckpt-bridge", model=model, tensors=len(want),
+          equal=equal, bin_bytes=(d / "ref.bin").stat().st_size, ok=equal)
+    if not equal:
+        raise AssertionError(f"{model}: the checkpoint bridge changed a "
+                             "tensor")
+    del system, synth
+    torch.cuda.empty_cache()
+
+    # the service (buckets 1 / 4 / 8, warm) and its HTTP API
+    b0 = _b1_launches()
+    t = time.perf_counter()
+    svc = GestureService(str(d / "imported"),
+                         max_clip_seconds=SERVE_CLIP_SECONDS, max_batch=8)
+    warm_s = time.perf_counter() - t
+    _, _, w_stream = _window_layout(cfg, 4.0)
+    paths[key] += _expect_b1(f"{model} service warm-up", b0,
+                             svc.stats["batches"] * W * per_window)
+    httpd = make_http_server(svc, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        audio, words = _serve_clip(SERVE_CLIP_SECONDS, 60)
+        n0, b0 = svc.stats["batches"], _b1_launches()
+        t = time.perf_counter()
+        got = svc.synthesize(audio, words, vid=2)
+        service_ms = (time.perf_counter() - t) * 1e3
+        code, resp = _http(f"{url}/synthesize", {
+            "audio": base64.b64encode(audio.astype("<f4").tobytes())
+            .decode(), "words": [list(w) for w in words], "vid": 2})
+        http = np.frombuffer(base64.b64decode(resp["dir_vec"]), "<f4") \
+            .reshape(resp["shape"]) if code == 200 else None
+        req = types.SimpleNamespace(audio=audio, words=words, vid=2)
+        a, w, v = svc.padded_batch([req])
+        direct = svc.synth.generate(a, w, svc.lang, v)[0, :len(got)]
+        batches = svc.stats["batches"] - n0
+        paths[key] += _expect_b1(f"{model} service request", b0,
+                                 (batches + 1) * W * per_window)
+        code_h, health = _http(f"{url}/healthz")
+        code_s, stream = _http(f"{url}/stream/open", {"vid": 0})
+        streams = model == "speech2gesture"
+        if streams:
+            refused = False
+            if code_s == 200:
+                svc.stream_finish(stream["stream_id"])
+        else:       # a raw-waveform model: every way in refuses a stream
+            try:
+                svc.synth.stream(lang, 0)
+                refused = False
+            except ValueError:
+                refused = code_s == 500
+        ok = (code == 200 and http is not None
+              and np.array_equal(got, direct) and np.array_equal(http, got)
+              and health.get("model") == model and batches == 2
+              and (code_s == 200) == streams and refused != streams
+              and svc.stats["errors"] == 0)
+        _line("baseline-service", model=model, warmup_s=f"{warm_s:.1f}",
+              buckets=svc.buckets, service_ms=f"{service_ms:.2f}",
+              shape=tuple(got.shape), http=code, healthz=code_h,
+              stream_open=code_s, stream_refused=refused,
+              equal_to_direct=bool(np.array_equal(got, direct)), ok=ok)
+        if not ok:
+            raise AssertionError(f"{model}: the service failed its checks")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+        svc.close()
+
+    # a live stream against generate, fp32 (speech2gesture)
+    if model == "speech2gesture":
+        cfg32 = cfg.replace(compute_dtype="float32")
+        system = build_system(cfg32, lang.n_words, speaker.n_words,
+                              generator=torch.Generator().manual_seed(0))
+        synth = make_synthesizer(system, system.state_dict())
+        audio, words = _serve_clip(SERVE_CLIP_SECONDS, 61, click=True)
+        want = synth.generate(audio[None], [words], lang,
+                              np.asarray([1]))[0]
+        stream = synth.stream(lang, 1, total_seconds=SERVE_CLIP_SECONDS)
+        outs = [stream.feed(words=words)]
+        lat = []
+        for i in range(0, len(audio), SR // 10):
+            t = time.perf_counter()
+            outs.append(stream.feed(audio[i:i + SR // 10]))
+            lat.append((time.perf_counter() - t) * 1e3)
+        outs.append(stream.finish())
+        got = np.concatenate(outs)
+        err = float(np.abs(got - want).max())
+        p50, p95 = np.percentile(lat, [50, 95])
+        ok = got.shape == want.shape and err <= STREAM_ATOL
+        _line("baseline-stream-vs-batch", model=model, dtype="float32",
+              feeds=len(lat), feed_ms_p50=f"{p50:.2f}",
+              feed_ms_p95=f"{p95:.2f}", shape=tuple(got.shape),
+              max_abs_err=f"{err:.3e}", tol=f"{STREAM_ATOL:.0e}", ok=ok)
+        if not ok:
+            raise AssertionError("the speech2gesture stream differs from "
+                                 "generate")
+        del system, synth
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def _baselines(work: Path):
+    """Phase 9; -> the kernels' launch counts by path."""
+    t0 = time.perf_counter()
+    counts = {}
+    for config, steps in BASELINE_RUNS:
+        model = _baseline_cfg(config).model
+        counts[f"training:{model}"] = _baseline_train(config, steps)
+    for config, _ in BASELINE_RUNS:
+        _baseline_card_vs_cpu(config)
+    paths = {f"serving:{_baseline_cfg(c).model}": 0
+             for c, _ in BASELINE_RUNS}
+    _reset_counts()
+    for config, _ in BASELINE_RUNS:
+        _baseline_serving(config, work, paths)
+    serving = _read_counts()
+    if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
+        raise AssertionError("training kernels launched while serving")
+    if serving["b1"] != sum(paths.values()):
+        raise AssertionError("B1 launches outside the counted serving calls")
+    for path, n in paths.items():
+        counts[path] = {**dict.fromkeys(serving, 0), "b1": n}
+    if any(c[k] for c in counts.values() for k in ("b2", "b3", "b4")):
+        raise AssertionError("B2-B4 launched in phase 9")
+    _line("baselines-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: v["b1"] for k, v in counts.items()})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2059,6 +2482,12 @@ def main() -> int:
               share=f"{b1_ms / ms:.3f}")
     bwd = {dtype: _b1_backward_times(dtype)
            for dtype in (torch.bfloat16, torch.float32)}
+    # the baselines' train shapes: batch 128, the multimodal generator's
+    # H = 300 and its discriminator's H = 64 (28 steps)
+    for T, H in ((34, 300), (28, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            _b1_times(T, 128, H, dtype)
+            _b1_backward_times(dtype, T=T, B=128, H=H)
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
     _sass_reckoning()
 
@@ -2079,17 +2508,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         serve_paths, _ = _serving(Path(tmp))
 
+    # phase 9: the GAN baselines (train, card vs CPU, serve, checkpoints)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        baselines = _baselines(Path(tmp))
+
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
         f"training:{config}": run[k] for config, run in runs.items()},
         "training:cli": cli_counts[k], **{
-            path: n if k == "b1" else 0 for path, n in serve_paths.items()}}
+            path: n if k == "b1" else 0 for path, n in serve_paths.items()},
+        **{path: c[k] for path, c in baselines.items()}}
+    phase9 = lambda k: sum(c[k] for c in baselines.values())
     entries = [{
         "name": "gru_recurrence", "route": "cuda",
         "source": "ha2g_torch/csrc/gru_recurrence.cu",
         "replaces": "ha2g_tpu/ops/pallas_gru.py:48",
         "launches": serving["b1"] + training["b1"] + cli_counts["b1"]
-        + sum(serve_paths.values()),
+        + sum(serve_paths.values()) + phase9("b1"),
         "launches_by_path": by_path("b1"),
         "max_abs_err": errs[(34, 8, 300, torch.bfloat16)],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -2101,7 +2536,7 @@ def main() -> int:
         "source": "ha2g_torch/csrc/gru_recurrence.cu",
         "replaces": "ha2g_tpu/ops/gru.py:100",
         "launches": serving["b1_bwd"] + training["b1_bwd"]
-        + cli_counts["b1_bwd"],
+        + cli_counts["b1_bwd"] + phase9("b1_bwd"),
         "launches_by_path": by_path("b1_bwd"),
         "max_abs_err": bwd_errs[(34, 96, 300, torch.bfloat16)],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2114,7 +2549,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "ha2g_torch/csrc/contrastive.cu",
             "replaces": f"ha2g_tpu/ops/pallas_contrastive.py:{line}",
-            "launches": serving[k] + training[k] + cli_counts[k],
+            "launches": serving[k] + training[k] + cli_counts[k]
+            + phase9(k),
             "launches_by_path": by_path(k),
             "max_abs_err": b234_errs[(3264, 32)][k],
             "ms": t["ms"], "plain_ms": t["plain_ms"],

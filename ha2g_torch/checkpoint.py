@@ -16,10 +16,12 @@ A checkpoint is a directory:
 built system with strict keys, and restores parameters, batch-norm
 statistics and Adam moments exactly.  It also reads a checkpoint directory
 of the JAX package (ha2g_tpu/checkpoint.py), whose ``state.msgpack`` holds
-the ``HierarchyState`` tree: ``read_jax_state`` decodes its parameters and
-batch-norm statistics (``utils/msgpack.py``), and ``convert.hierarchy_state``
-maps them onto the port's keys.  Its optimiser moments are not carried, so
-such a checkpoint serves and evaluates but does not resume.  An FGD
+the training state tree (a hierarchy's ``HierarchyState``, a GAN
+baseline's ``GanState`` {gen, dis}): ``read_jax_state`` decodes its
+parameters and batch-norm statistics (``utils/msgpack.py``), and
+``convert.system_state`` maps them onto the port's keys.  Its optimiser
+moments are not carried, so such a checkpoint serves and evaluates but
+does not resume.  An FGD
 embedder is saved the same way by ``save_embedder`` (model only, with a
 config whose model is ``gesture_autoencoder``), and read by
 ``load_embedder``.
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from ha2g_torch.config import Config
-from ha2g_torch.convert import hierarchy_state
+from ha2g_torch.convert import system_state
 from ha2g_torch.data.vocab import Vocab
 from ha2g_torch.utils.msgpack import unpackb
 
@@ -85,8 +87,9 @@ def read_state(path) -> dict[str, Any]:
 
 def _jax_state(tree: dict) -> tuple[dict, dict]:
     params = dict(tree["params"])
-    gens = params["gens"]
-    params["gens"] = [gens[str(i)] for i in range(len(gens))]
+    if "gens" in params:        # a hierarchy's level tuple
+        gens = params["gens"]
+        params["gens"] = [gens[str(i)] for i in range(len(gens))]
     return params, tree["batch_stats"]
 
 
@@ -96,8 +99,8 @@ def _read_jax_tree(path) -> dict:
 
 def read_jax_state(path) -> tuple[dict, dict]:
     """-> (params, batch_stats) of a JAX checkpoint directory as numpy
-    trees, with ``params["gens"]`` a list by level, the layout
-    ``convert.hierarchy_state`` takes."""
+    trees (a hierarchy's ``params["gens"]`` a list by level), the layout
+    ``convert.system_state`` takes."""
     return _jax_state(_read_jax_tree(path))
 
 
@@ -114,8 +117,8 @@ def load_state(path, system, optimizers: bool = True) -> int:
                              "cannot be resumed")
         tree = _read_jax_tree(path)
         params, stats = _jax_state(tree)
-        system.load_state_dict(hierarchy_state(params, stats,
-                                               system.cfg.n_layers),
+        system.load_state_dict(system_state(system.cfg.model, params, stats,
+                                            system.cfg.n_layers),
                                strict=True)
         return int(np.asarray(tree["step"]))
     state = read_state(path)

@@ -17,13 +17,17 @@
 A CHECKPOINT is a directory written by the port (``state.pt``) or by the
 JAX package (``state.msgpack``): synthesize, eval, from-text, serve and
 export-checkpoint read either; ``train --resume`` needs the port's, which
-carries the optimiser state.  ``import-checkpoint`` turns a reference
-hierarchy ``.bin`` into a port checkpoint (other families raise: they
-are not ported yet), ``export-checkpoint`` writes a hierarchy or an FGD
-embedder directory as a reference ``.bin``, and ``import-evalnet`` turns a
-reference FGD embedder ``.bin`` into a directory ``eval_net_path`` can
-name.  ``from-text`` needs ``--wav`` (16 kHz mono) and spreads the words
-evenly over it (no TTS, no forced alignment).
+carries the optimiser state.  The model families: hierarchy,
+multimodal_context and speech2gesture (the others raise, naming ROADMAP
+A.5).  ``import-checkpoint`` turns a reference ``.bin`` (a hierarchy's, or
+a baseline's generic one) into a port checkpoint, ``export-checkpoint``
+writes a checkpoint or an FGD embedder directory as a reference ``.bin``,
+and ``import-evalnet`` turns a reference FGD embedder ``.bin`` into a
+directory ``eval_net_path`` can name.  ``--fused`` (synthesize) is the
+hierarchy's fused loop; other models run their window loop.  Live
+streams (``serve``) drive spectrogram-windowed models (hierarchy,
+speech2gesture).  ``from-text`` needs ``--wav`` (16 kHz mono) and
+spreads the words evenly over it (no TTS, no forced alignment).
 
 Data paths in a config are a clip-storage directory (data/storage.py) or
 "synthetic" / "none" / empty, a built-in synthetic set; any other path
@@ -219,7 +223,7 @@ def cmd_synthesize(argv: list[str]) -> int:
     p.add_argument("--n", type=int, default=4)
     p.add_argument("--out", default="synthesis_out.npz")
     p.add_argument("--fused", action="store_true",
-                   help="the audio encoder once over all windows")
+                   help="hierarchy: the audio encoder once over all windows")
     p.add_argument("--fade_out", action="store_true",
                    help="append the fade to the mean pose")
     p.add_argument("--device", default="cuda")
@@ -235,10 +239,12 @@ def cmd_synthesize(argv: list[str]) -> int:
     words = [c["words"] for c in clips]
     vids = np.asarray([speaker.get_word_index(c["vid"]) for c in clips],
                       np.int64)
-    run = synth.generate_fused if a.fused else synth.generate
-    out = run(audio, words, lang, vids)
-    if a.fade_out:
-        out = np.stack([fade_out_to_mean(r, cfg, 0.0) for r in out])
+    if a.fused and hasattr(synth, "generate_fused"):
+        out = synth.generate_fused(audio, words, lang, vids)
+        if a.fade_out:
+            out = np.stack([fade_out_to_mean(r, cfg, 0.0) for r in out])
+    else:
+        out = synth.generate(audio, words, lang, vids, fade_out=a.fade_out)
     np.savez(a.out, dir_vec=out, audio=audio)
     print(f"wrote {a.out}: {out.shape}")
     return 0
@@ -314,8 +320,9 @@ def cmd_serve(argv: list[str]) -> int:
 
 
 def cmd_import_checkpoint(argv: list[str]) -> int:
-    """A reference hierarchy ``.bin`` -> a port checkpoint directory, with
-    its config (``ref_routing_compat`` on for TED Expressive) and
+    """A reference ``.bin`` (hierarchy, or a baseline's generic
+    checkpoint) -> a port checkpoint directory, with its config
+    (``ref_routing_compat`` on for a TED Expressive hierarchy) and
     vocabularies, loaded strictly into a freshly built system."""
     from ha2g_torch import reference_ckpt as rc
     from ha2g_torch.checkpoint import save_checkpoint
@@ -330,16 +337,12 @@ def cmd_import_checkpoint(argv: list[str]) -> int:
 
     ckpt = rc.load_reference_checkpoint(a.bin_path)
     cfg = rc.config_from_reference_args(ckpt["args"])
-    if cfg.model != "hierarchy":
-        raise NotImplementedError(
-            f"model {cfg.model!r}: importing this family is not ported yet "
-            "(ROADMAP A.5)")
+    state = rc.import_checkpoint(ckpt, cfg)     # raises for a family left
     lang = rc.vocab_from_pickled(ckpt["lang_model"])
     speaker = rc.vocab_from_pickled(ckpt["speaker_model"])
     system = build_system(cfg, lang.n_words, max(speaker.n_words, 1),
                           device=device)
-    system.load_state_dict(rc.import_hierarchy_checkpoint(
-        ckpt, cfg.skeleton.n_levels), strict=True)
+    system.load_state_dict(state, strict=True)
     save_checkpoint(a.out_dir, system, cfg, lang, speaker,
                     extra={"epoch": int(ckpt.get("epoch", 0)),
                            "imported_from": str(a.bin_path)})
@@ -349,8 +352,8 @@ def cmd_import_checkpoint(argv: list[str]) -> int:
 
 
 def cmd_export_checkpoint(argv: list[str]) -> int:
-    """A hierarchy checkpoint directory (port or JAX) or an FGD embedder
-    directory -> the reference's ``.bin`` layout."""
+    """A checkpoint directory (port or JAX) or an FGD embedder directory ->
+    the reference's ``.bin`` layout."""
     import torch
     from ha2g_torch import reference_ckpt as rc
     from ha2g_torch.checkpoint import load_config, load_embedder
@@ -371,9 +374,10 @@ def cmd_export_checkpoint(argv: list[str]) -> int:
     else:
         cfg, lang, speaker, system = load_checkpoint_system(a.checkpoint,
                                                             device)
-        ckpt = rc.export_hierarchy_checkpoint(system.state_dict(), cfg, lang,
-                                              speaker, epoch)
-        what = f"hierarchy, {cfg.skeleton.n_levels} gen_dicts"
+        ckpt = rc.export_checkpoint(system.state_dict(), cfg, lang, speaker,
+                                    epoch)
+        what = f"hierarchy, {cfg.skeleton.n_levels} gen_dicts" \
+            if cfg.model == "hierarchy" else f"{cfg.model}, generic layout"
     torch.save(ckpt, a.out_bin)
     print(f"wrote {a.out_bin} ({what})")
     return 0

@@ -19,7 +19,10 @@ use.  Every conversion is a layout change only (so a tree of JAX
 
 The FGD embedders convert the same way: ``embedding_net_pose_state`` (TED
 Gesture's EmbeddingNet in pose mode) and ``motion_ae_state`` (TED
-Expressive's MotionAE).
+Expressive's MotionAE); so do the baselines' ``GanState`` trees {gen, dis}:
+``multimodal_state`` and ``speech2gesture_state`` (``gen.*`` holds the
+reference's ``gen_dict``, ``dis.*`` its ``dis_dict``).  ``system_state``
+picks the conversion of a config's model.
 """
 
 from __future__ import annotations
@@ -240,3 +243,98 @@ def motion_ae_state(params: dict, batch_stats: dict) -> dict[str, Any]:
     _pose_decoder(params["MotionDecoderConv_0"],
                   batch_stats["MotionDecoderConv_0"], sd, "decoder")
     return sd
+
+
+def _n_layers(gru: dict) -> int:
+    return sum(k.startswith("w_ih_l") for k in gru)
+
+
+def _prefixed(prefix: str, sd: dict) -> dict[str, Any]:
+    return {f"{prefix}{k}": v for k, v in sd.items()}
+
+
+def wav_encoder_state(params: dict, stats: dict, sd: dict,
+                      prefix: str = "audio_encoder") -> None:
+    """WavEncoder params + batch stats -> the reference's
+    ``feat_extractor`` Sequential keys (multimodal_context_net.py:9-28)."""
+    for i, slot in enumerate((0, 3, 6, 9)):
+        _conv(params[f"Conv1d_{i}"]["Conv_0"], sd,
+              f"{prefix}.feat_extractor.{slot}")
+    for i, slot in enumerate((1, 4, 7)):
+        _bn(params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"], sd,
+            f"{prefix}.feat_extractor.{slot}")
+
+
+def multimodal_state(params: dict, batch_stats: dict) -> dict[str, Any]:
+    """The JAX MultimodalGanSystem's params / batch_stats {gen, dis} -> the
+    port's state dict: ``gen.*`` the reference's PoseGenerator keys,
+    ``dis.*`` its ConvDiscriminator keys."""
+    gen, gen_stats = params["gen"], batch_stats["gen"]
+    sd = generator_state(gen, _n_layers(gen["GRU_0"]))
+    wav_encoder_state(gen["WavEncoder_0"], gen_stats["WavEncoder_0"], sd)
+    return {**_prefixed("gen.", sd), **_prefixed(
+        "dis.", discriminator_state(params["dis"], batch_stats["dis"]))}
+
+
+def _s2g_cnr(p: dict, s: dict, sd: dict, key: str) -> None:
+    _conv(p["Conv_0"], sd, f"{key}.0")
+    _bn(p["BatchNorm_0"], s["BatchNorm_0"], sd, f"{key}.1")
+
+
+def s2g_generator_state(params: dict, stats: dict) -> dict[str, Any]:
+    """speech2gesture Generator params + batch stats -> the reference's
+    keys (speech2gesture.py:200-231).  flax names the AudioEncoder's
+    ConvNormRelus in call order: first_net 0-7, then down1.0, down1.1,
+    down2 .. down6 as 8-14."""
+    sd: dict[str, Any] = {}
+    ae_p, ae_s = params["AudioEncoder_0"], stats["AudioEncoder_0"]
+    keys = [f"first_net.{i}" for i in range(8)] + \
+        ["down1.0", "down1.1"] + [f"down{i}" for i in range(2, 7)]
+    for i, key in enumerate(keys):
+        _s2g_cnr(ae_p[f"ConvNormRelu_{i}"], ae_s[f"ConvNormRelu_{i}"], sd,
+                 f"audio_encoder.{key}")
+    for i in range(5):
+        _s2g_cnr(ae_p[f"UnetUp_{i}"]["ConvNormRelu_0"],
+                 ae_s[f"UnetUp_{i}"]["ConvNormRelu_0"], sd,
+                 f"audio_encoder.up{i + 1}.conv")
+    _dense(params["Dense_0"], sd, "pre_pose_encoder.0")
+    _bn(params["BatchNorm_0"], stats["BatchNorm_0"], sd, "pre_pose_encoder.1")
+    _dense(params["Dense_1"], sd, "pre_pose_encoder.3")
+    for i in range(4):
+        _s2g_cnr(params[f"ConvNormRelu_{i}"], stats[f"ConvNormRelu_{i}"], sd,
+                 f"decoder.{i}")
+    _conv(params["Conv_0"], sd, "final_out")
+    return sd
+
+
+def s2g_discriminator_state(params: dict, stats: dict) -> dict[str, Any]:
+    """speech2gesture Discriminator params + batch stats -> the
+    reference's ``net`` Sequential keys (speech2gesture.py:234-250)."""
+    sd: dict[str, Any] = {}
+    _conv(params["Conv_0"], sd, "net.0")
+    _s2g_cnr(params["ConvNormRelu_0"], stats["ConvNormRelu_0"], sd, "net.2")
+    _s2g_cnr(params["ConvNormRelu_1"], stats["ConvNormRelu_1"], sd, "net.3")
+    _conv(params["Conv_1"], sd, "net.4")
+    return sd
+
+
+def speech2gesture_state(params: dict, batch_stats: dict) -> dict[str, Any]:
+    """The JAX S2GSystem's params / batch_stats {gen, dis} -> the port's
+    state dict (``gen.*``, ``dis.*``, the reference's key names)."""
+    return {**_prefixed("gen.", s2g_generator_state(params["gen"],
+                                                    batch_stats["gen"])),
+            **_prefixed("dis.", s2g_discriminator_state(params["dis"],
+                                                        batch_stats["dis"]))}
+
+
+def system_state(model: str, params: dict, batch_stats: dict,
+                 n_layers: int) -> dict[str, Any]:
+    """The port's state dict of a JAX training system of ``model`` (a
+    hierarchy's ``params["gens"]`` a list by level)."""
+    if model == "hierarchy":
+        return hierarchy_state(params, batch_stats, n_layers)
+    if model == "multimodal_context":
+        return multimodal_state(params, batch_stats)
+    if model == "speech2gesture":
+        return speech2gesture_state(params, batch_stats)
+    raise ValueError(f"no conversion for model {model!r}")

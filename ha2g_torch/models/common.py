@@ -18,6 +18,7 @@ drawn from an explicit ``torch.Generator`` by ``init_parameters_``:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -56,7 +57,12 @@ class BatchNorm(nn.BatchNorm2d):
     the whole batch, and the running variance updated with the *biased*
     batch variance that also normalises (torch's own update would take the
     unbiased one), so the running statistics are updated here by hand.
+    ``update_stats`` False (``keep_running_stats``) normalises with the
+    batch's statistics all the same and leaves the running ones alone, as
+    the JAX package's auxiliary train-mode forwards do.
     """
+
+    update_stats = True
 
     def forward(self, x, dtype: torch.dtype = torch.float32):
         xf = x.float()
@@ -66,6 +72,8 @@ class BatchNorm(nn.BatchNorm2d):
             return out.to(dtype)
         out = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
+        if not self.update_stats:
+            return out.to(dtype)
         with torch.no_grad():
             dims = [0, *range(2, xf.dim())]
             var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
@@ -73,6 +81,21 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - m).add_(m * mean)
             self.running_var.mul_(1.0 - m).add_(m * var)
         return out.to(dtype)
+
+
+@contextlib.contextmanager
+def keep_running_stats(module: nn.Module):
+    """Within the block, no BatchNorm under ``module`` updates its running
+    statistics (a train-mode forward whose statistics the JAX package
+    throws away, ``mutable=False``)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 def dropout(x, p: float, training: bool, generator: torch.Generator | None):

@@ -40,8 +40,11 @@ class HierarchicalPoseGenerator(nn.Module):
 
     The speaker-z layers (the JAX package's ``SpeakerZ``) sit directly on
     the cell as ``speaker_embedding`` / ``speaker_mu`` / ``speaker_logvar``,
-    as in the reference's state dicts; see ``speaker_z``.
+    as in the reference's state dicts; see ``speaker_z``.  ``slope`` is the
+    output LeakyReLU's (hierarchy_net.py:91).
     """
+
+    slope = 0.01
 
     def __init__(self, pose_dim: int, n_words: int, n_speakers: int,
                  word_embed_dim: int = 300, hidden_size: int = 300,
@@ -71,7 +74,7 @@ class HierarchicalPoseGenerator(nn.Module):
         in_size += Z_SIZE if z_type != "none" else 0
         self.gru = GRU(in_size, hidden_size, n_layers, dropout=dropout)
         self.out = nn.ModuleList([Linear(hidden_size, hidden_size // 2),
-                                  nn.LeakyReLU(0.01),
+                                  nn.LeakyReLU(self.slope),
                                   Linear(hidden_size // 2, pose_dim)])
 
     def speaker_z(self, vid_indices, batch: int, dtype,
@@ -113,7 +116,7 @@ class HierarchicalPoseGenerator(nn.Module):
         out, _ = self.gru(in_data, dtype, generator)
         H = self.hidden_size
         out = out[..., :H] + out[..., H:]
-        out = leaky_relu(self.out[0](out, dtype), 0.01)
+        out = leaky_relu(self.out[0](out, dtype), self.slope)
         return self.out[2](out, dtype), z, mu, logvar
 
 

@@ -1,11 +1,13 @@
 """Checkpoints of the reference PyTorch code (``.bin`` files), both ways,
-for the hierarchy and the FGD embedders.
+for the hierarchy, the GAN baselines (multimodal_context, speech2gesture)
+and the FGD embedders.
 
-The port's copy of the hierarchy and embedder parts of
-``ha2g_tpu/import_torch.py`` (loading, ``vocab_from_pickled``,
-``config_from_reference_args``, ``import_hierarchy_checkpoint``) and
+The port's copy of those parts of ``ha2g_tpu/import_torch.py`` (loading,
+``vocab_from_pickled``, ``config_from_reference_args``,
+``import_hierarchy_checkpoint``, ``import_generic_checkpoint``) and
 ``ha2g_tpu/export_torch.py`` (``export_hierarchy_checkpoint``,
-``export_evalnet_checkpoint``, ``_vocab_namespace``, ``_args_namespace``).
+``export_generic_checkpoint``, ``export_evalnet_checkpoint``,
+``_vocab_namespace``, ``_args_namespace``).
 
 A reference checkpoint is a ``torch.save`` dict (reference train.py:232-243):
 ``args`` (an argparse Namespace), ``epoch``, ``lang_model`` /
@@ -15,6 +17,10 @@ A reference checkpoint is a ``torch.save`` dict (reference train.py:232-243):
 names, so the weights move by prefix alone: ``audio_dict`` <-> ``audio.``,
 ``text_dict`` <-> ``text.``, ``dis_dict`` <-> ``dis.``, ``gen_dict_{l}``
 <-> ``gens.{l-1}.``; a leading ``module.`` (DataParallel) is stripped.
+A baseline's generic checkpoint (train.py:239-244, loaded by
+train_utils.py:197-213) holds ``args``, ``epoch``, ``lang_model``,
+``speaker_model``, ``pose_dim``, ``gen_dict`` <-> ``gen.`` and
+``dis_dict`` <-> ``dis.``.
 An FGD embedder's file holds ``gen_dict`` (EmbeddingNet, pose_dim 27) or
 ``motion_ae`` and ``latent_dim`` (MotionAE, pose_dim 126).
 
@@ -118,19 +124,42 @@ def _prefixes(n_levels: int) -> list[tuple[str, str]]:
          for level in range(n_levels)]
 
 
+# (reference dict, port prefix) pairs of a GAN baseline's checkpoint
+GENERIC_PREFIXES = [("gen_dict", "gen."), ("dis_dict", "dis.")]
+GENERIC_FAMILIES = ("multimodal_context", "speech2gesture")
+
+
 def _tensor(v) -> torch.Tensor:
     t = torch.as_tensor(v).detach().cpu()
     return (t.float() if t.is_floating_point() else t).contiguous().clone()
 
 
+def _import(ckpt: dict, prefixes) -> dict:
+    return {prefix + k: _tensor(v) for name, prefix in prefixes
+            for k, v in _strip_module_prefix(ckpt[name]).items()}
+
+
 def import_hierarchy_checkpoint(ckpt: dict, n_levels: int) -> dict:
     """A reference hierarchy checkpoint dict -> the port's state dict, for
     ``load_state_dict(strict=True)``."""
-    sd = {}
-    for name, prefix in _prefixes(n_levels):
-        for k, v in _strip_module_prefix(ckpt[name]).items():
-            sd[prefix + k] = _tensor(v)
-    return sd
+    return _import(ckpt, _prefixes(n_levels))
+
+
+def import_generic_checkpoint(ckpt: dict, cfg: Config) -> dict:
+    """A reference generic checkpoint dict of a GAN baseline -> the port's
+    state dict (``gen.*``, ``dis.*``)."""
+    if cfg.model not in GENERIC_FAMILIES:
+        raise NotImplementedError(
+            f"model {cfg.model!r}: importing this family is not ported yet "
+            "(ROADMAP A.5)")
+    return _import(ckpt, GENERIC_PREFIXES)
+
+
+def import_checkpoint(ckpt: dict, cfg: Config) -> dict:
+    """A reference checkpoint of ``cfg.model`` -> the port's state dict."""
+    if cfg.model == "hierarchy":
+        return import_hierarchy_checkpoint(ckpt, cfg.skeleton.n_levels)
+    return import_generic_checkpoint(ckpt, cfg)
 
 
 def import_embedder_checkpoint(ckpt: dict) -> tuple[int, int, dict]:
@@ -175,13 +204,41 @@ def export_hierarchy_checkpoint(state: dict, cfg: Config,
                                 epoch: int = 0) -> dict:
     """The port's hierarchy state dict -> the reference's checkpoint dict
     (train.py:232-243 / train_expressive.py:298-304)."""
+    return _export(state, cfg, lang, speaker, epoch,
+                   _prefixes(cfg.skeleton.n_levels))
+
+
+def export_generic_checkpoint(state: dict, cfg: Config,
+                              lang: Optional[Vocab] = None,
+                              speaker: Optional[Vocab] = None,
+                              epoch: int = 0) -> dict:
+    """The port's state dict of a GAN baseline -> the reference's generic
+    checkpoint dict {args, epoch, lang_model, speaker_model, pose_dim,
+    gen_dict, dis_dict} (train.py:239-244)."""
+    if cfg.model not in GENERIC_FAMILIES:
+        raise ValueError(f"no generic exporter for model {cfg.model!r}")
+    return _export(state, cfg, lang, speaker, epoch, GENERIC_PREFIXES)
+
+
+def export_checkpoint(state: dict, cfg: Config,
+                      lang: Optional[Vocab] = None,
+                      speaker: Optional[Vocab] = None,
+                      epoch: int = 0) -> dict:
+    """The port's state dict of ``cfg.model`` -> the reference's dict."""
+    export = export_hierarchy_checkpoint if cfg.model == "hierarchy" \
+        else export_generic_checkpoint
+    return export(state, cfg, lang, speaker, epoch)
+
+
+def _export(state: dict, cfg: Config, lang, speaker, epoch: int,
+            prefixes) -> dict:
     ckpt: dict[str, Any] = {
         "args": _args_namespace(cfg), "epoch": int(epoch),
         "lang_model": _vocab_namespace(lang),
         "speaker_model": _vocab_namespace(speaker),
         "pose_dim": int(cfg.pose_dim)}
     taken = 0
-    for name, prefix in _prefixes(cfg.skeleton.n_levels):
+    for name, prefix in prefixes:
         ckpt[name] = {k[len(prefix):]: _tensor(v) for k, v in state.items()
                       if k.startswith(prefix)}
         taken += len(ckpt[name])

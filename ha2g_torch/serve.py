@@ -130,7 +130,8 @@ class _WindowBatcher:
         self._q: Queue[_WindowReq] = Queue()
         self._stop = threading.Event()
         self._counter = 0
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="ha2g-stream-batcher")
         self._thread.start()
 
     def run(self, inputs: dict, generator: torch.Generator) -> np.ndarray:
@@ -232,10 +233,11 @@ class GestureService:
         self._streams_lock = threading.Lock()
         self._window_batcher = _WindowBatcher(
             self.synth, self.buckets, stream_batch_window_ms, self._count) \
-            if stream_batching else None
+            if stream_batching and self.supports_streaming() else None
         self._q: Queue[_Request] = Queue()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="ha2g-serve-loop")
         self._thread.start()
         if warm:
             self.warmup()
@@ -247,26 +249,41 @@ class GestureService:
 
     # ------------------------------------------------------------------
     def warmup(self):
-        """Run every (loop, bucket) once and one stream: on the card this
-        builds the kernels and picks cuDNN's algorithms before the first
-        request."""
+        """Run every (loop, bucket) once and, where the model streams, one
+        stream: on the card this builds the kernels and picks cuDNN's
+        algorithms before the first request.  A synthesizer without a
+        fused loop runs its window loop only."""
         silent = np.zeros(self.n_samples, np.float32)
-        for fused in (True, False):
+        fused_opts = (True, False) if hasattr(self.synth, "generate_fused") \
+            else (False,)
+        for fused in fused_opts:
             for bucket in self.buckets:
                 reqs = [self.submit(silent, [], 0, fused=fused)
                         for _ in range(bucket)]
                 for r in reqs:
                     r.done.wait()
+        if not self.supports_streaming():
+            return
         sid = self.open_stream(0)
         self.stream_feed(sid, np.zeros(2 * SR, np.float32))
         self.stream_feed(sid, np.zeros(2 * SR, np.float32))
         self.stream_finish(sid)
 
     # ---- live streams --------------------------------------------------
+    def supports_streaming(self) -> bool:
+        """Live streams drive spectrogram-windowed models only."""
+        return self.synth.uses_spec and not self.synth.uses_audio
+
     def open_stream(self, vid: int = 0,
                     total_seconds: Optional[float] = None) -> str:
         """Open a live GestureStream; -> its id.  Idle streams past
-        ``stream_idle_timeout`` are dropped first."""
+        ``stream_idle_timeout`` are dropped first.  A raw-waveform model
+        (multimodal_context) raises ValueError."""
+        if not self.supports_streaming():
+            raise ValueError(
+                f"model {self.cfg.model!r} is not spectrogram-windowed; "
+                "live streaming drives spec-windowed models (hierarchy, "
+                "speech2gesture)")
         now = time.monotonic()
         with self._streams_lock:
             for sid in [s for s, e in self._streams.items()
@@ -348,10 +365,14 @@ class GestureService:
         return req.result
 
     def close(self):
+        """Stop the batching loop and the stream batcher and drop the live
+        streams."""
         self._stop.set()
         self._thread.join(timeout=5.0)
         if self._window_batcher is not None:
             self._window_batcher.close()
+        with self._streams_lock:
+            self._streams.clear()
 
     # ------------------------------------------------------------------
     def _loop(self):
@@ -379,7 +400,9 @@ class GestureService:
     def _run(self, group: list[_Request], fused: bool):
         try:
             audio, words, vids = self.padded_batch(group)
-            run = self.synth.generate_fused if fused else self.synth.generate
+            run = self.synth.generate_fused \
+                if fused and hasattr(self.synth, "generate_fused") \
+                else self.synth.generate
             out = run(audio, words, self.lang, vids)
             frames = 0
             for i, r in enumerate(group):

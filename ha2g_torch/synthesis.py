@@ -1,27 +1,31 @@
-"""Sliding-window gesture synthesis for the hierarchy model.
+"""Sliding-window gesture synthesis (the port of ha2g_tpu/synthesis.py).
 
 Long audio is processed in n_poses-frame windows with stride
 n_poses - n_pre_poses; each window is seeded with the last n_pre frames of
 the previous window's output, and the n_pre overlapping frames are linearly
-cross-faded (reference synthesize_hierarchy.py:36-215).
+cross-faded (reference synthesize.py:36-209, synthesize_hierarchy.py:
+36-215).  ``SlidingWindowSynthesizer`` holds the window loop; a subclass
+gives one window's step: ``HierarchySynthesizer`` (the audio encoder on
+the window's spectrogram, then the level cascade), ``S2GSynthesizer``
+(the speech2gesture generator on the spectrogram window) and
+``MultimodalSynthesizer`` (the multimodal_context generator on the raw
+waveform window).  ``make_synthesizer`` picks by the config's model.
 
-Two loops compute the same thing:
-
-* ``generate``: per window, the audio encoder on that window's spectrogram
-  slice, then the level cascade (the reference's loop);
-* ``generate_fused`` (``prepare_fused`` + ``run_fused``): the audio encoder
-  does not depend on the carry, so it runs once over all windows at
-  W-fold batch; the cascade, carry and cross-fade then run per window.
+The hierarchy has a second loop that computes the same thing,
+``generate_fused`` (``prepare_fused`` + ``run_fused``): the audio encoder
+does not depend on the carry, so it runs once over all windows at W-fold
+batch; the cascade, carry and cross-fade then run per window.
 
 Every GRU recurrence goes through kernel B1 on CUDA.  The speaker-z noise
 comes from a ``torch.Generator`` (seed 0 when none is given), drawn in
-window order and level order by both loops.
+window order (and level order) by every loop.
 
-``GestureStream`` (``HierarchySynthesizer.stream``) runs the same window
-step on audio that arrives in chunks, one window behind the live edge;
-``fade_out_to_mean`` is the reference's quadratic fade to the mean pose.
-Every entry point runs under ``torch.inference_mode``, which is per
-thread: the serving layer calls them from several threads.
+``GestureStream`` (``SlidingWindowSynthesizer.stream``) runs the window
+step of a spectrogram-windowed model on audio that arrives in chunks, one
+window behind the live edge; ``fade_out_to_mean`` is the reference's
+quadratic fade to the mean pose.  Every entry point runs under
+``torch.inference_mode``, which is per thread: the serving layer calls
+them from several threads.
 """
 
 from __future__ import annotations
@@ -90,10 +94,13 @@ def _cross_fade(prev_tail: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return prev_tail * (n - j) / (n + 1) + head * (j + 1) / (n + 1)
 
 
-class HierarchySynthesizer:
-    """Window loop over a HierarchySystem whose parameters are ``state``."""
+class SlidingWindowSynthesizer:
+    """The window loop over a training system whose parameters are
+    ``state`` (JAX synthesis.py:94-228); a subclass gives ``window_step``
+    and says which inputs it reads: the spectrogram window ``spec_w``
+    (``uses_spec``) and / or the raw waveform window ``audio_w``
+    (``uses_audio``)."""
 
-    # the window step reads the spectrogram, not the raw waveform
     uses_spec = True
     uses_audio = False
 
@@ -111,37 +118,24 @@ class HierarchySynthesizer:
         return generator if generator is not None \
             else torch.Generator().manual_seed(0)
 
-    @torch.inference_mode()
-    def window_step(self, spec_w, text_w, carry, vids, generator):
-        """One window: spec_w (B, 128, S), text_w (B, T), carry
-        (B, n_pre, pose_dim), vids (B,) -> float32 (B, T, pose_dim)."""
-        blend = self.system.audio(spec_w, vids, self.dtype)[-1]
-        return self._cascade_step(text_w, blend, carry, vids, generator)
+    def window_step(self, inputs: dict, generator) -> torch.Tensor:
+        """One window: inputs {"text_w" (B, T), "carry" (B, n_pre,
+        pose_dim), "vids" (B,), "spec_w" (B, 128, S) and / or "audio_w"
+        (B, n)} as tensors on the device -> float32 (B, T, pose_dim)."""
+        raise NotImplementedError
 
+    @torch.inference_mode()
     def run_window(self, inputs: dict, generator: torch.Generator
                    ) -> np.ndarray:
-        """``window_step`` on host arrays: inputs {"spec_w", "text_w",
-        "carry", "vids"} as numpy -> float32 numpy (B, T, pose_dim).  The
-        stream's window call, and the one the serving layer batches."""
+        """``window_step`` on host arrays (numpy, the same keys) -> float32
+        numpy (B, T, pose_dim).  The stream's window call, and the one the
+        serving layer batches."""
         dev = self.device
-        out = self.window_step(
-            torch.from_numpy(np.ascontiguousarray(inputs["spec_w"])).to(dev),
-            torch.as_tensor(inputs["text_w"], device=dev).long(),
-            torch.from_numpy(np.ascontiguousarray(inputs["carry"])).to(dev),
-            torch.as_tensor(inputs["vids"], device=dev).long(), generator)
-        return out.cpu().numpy()
-
-    def _cascade_step(self, text_w, blend_w, carry, vids, generator):
-        """Level cascade on precomputed blend features for one window."""
-        cfg = self.cfg
-        B = text_w.shape[0]
-        target = torch.zeros((B, cfg.n_poses, self.spec.pose_dim),
-                             device=self.device)
-        target[:, :cfg.n_pre_poses] = carry
-        outs, _, _, _, _ = run_cascade(self.system.gens, self.spec, target,
-                                       text_w, blend_w, vids,
-                                       cfg.n_pre_poses, self.dtype, generator)
-        return outs[-1].float()
+        t = {k: torch.as_tensor(v, device=dev).long()
+             if k in ("text_w", "vids")
+             else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in inputs.items()}
+        return self.window_step(t, generator).cpu().numpy()
 
     def _text_windows(self, words_per_clip, lang, num_sub, unit_time,
                       stride_time) -> torch.Tensor:
@@ -159,33 +153,56 @@ class HierarchySynthesizer:
                  fade_out: bool = False) -> np.ndarray:
         """audio (B, n_samples) float32, int16 or uint8 mu-law;
         words_per_clip: B lists of (word, start, end); vids (B,) ->
-        (B, total_frames, pose_dim) float32.  ``fade_out`` appends the
-        fade to the mean pose (``fade_out_to_mean``; a hierarchy reads no
-        raw audio, so its end padding is 0 s and the fade adds
-        2 * n_pre_poses frames)."""
+        (B, total_frames, pose_dim) float32.
+
+        Spectrogram windows are sliced from the whole clip's log-mel (the
+        last one edge-padded); raw-waveform windows start at
+        floor(start / clip * n_samples), are int(unit_time * 16000)
+        samples long and the last one is zero-padded (int16 / mu-law
+        audio is decoded on the host first).  ``fade_out`` appends the
+        fade to the mean pose (``fade_out_to_mean``) over the last
+        window's zero padding, 0 s for a spectrogram model."""
         cfg = self.cfg
         generator = self._generator(generator)
+        if self.uses_audio:
+            audio = pcm_to_float_np(np.asarray(audio))
         B, n_samples = np.shape(audio)
         clip_seconds = n_samples / SR
         unit_time, stride_time, num_sub = _window_layout(cfg, clip_seconds)
-        spec_len = spectrogram_length_for(cfg.n_poses,
-                                          cfg.motion_resampling_framerate)
-        full_spec = _mel_any(audio, self.device)
-        S_total = full_spec.shape[2]
+        if self.uses_spec:
+            spec_len = spectrogram_length_for(cfg.n_poses,
+                                              cfg.motion_resampling_framerate)
+            full_spec = _mel_any(audio, self.device)
+            S_total = full_spec.shape[2]
+        if self.uses_audio:
+            audio_len = int(unit_time * SR)
+            wav = torch.from_numpy(np.ascontiguousarray(audio, np.float32)) \
+                .to(self.device)
         text_all = self._text_windows(words_per_clip, lang, num_sub,
                                       unit_time, stride_time)
         vids_t = torch.as_tensor(np.asarray(vids), device=self.device).long()
         n = cfg.n_pre_poses
+        end_padding = 0.0
 
         pieces = []
         carry = torch.zeros((B, n, self.spec.pose_dim), device=self.device)
         for i in range(num_sub):
-            s0 = math.floor(i * stride_time / clip_seconds * S_total)
-            s1 = s0 + spec_len
-            spec = full_spec if s1 <= S_total else F.pad(
-                full_spec, (0, s1 - S_total), mode="replicate")
-            out = self.window_step(spec[:, :, s0:s1], text_all[i], carry,
-                                   vids_t, generator)
+            inputs = {"text_w": text_all[i], "carry": carry, "vids": vids_t}
+            if self.uses_spec:
+                s0 = math.floor(i * stride_time / clip_seconds * S_total)
+                s1 = s0 + spec_len
+                spec = full_spec if s1 <= S_total else F.pad(
+                    full_spec, (0, s1 - S_total), mode="replicate")
+                inputs["spec_w"] = spec[:, :, s0:s1]
+            if self.uses_audio:
+                a0 = math.floor(i * stride_time / clip_seconds * n_samples)
+                aw = wav[:, a0:a0 + audio_len]
+                if aw.shape[1] < audio_len:
+                    if i == num_sub - 1:
+                        end_padding = (audio_len - aw.shape[1]) / SR
+                    aw = F.pad(aw, (0, audio_len - aw.shape[1]))
+                inputs["audio_w"] = aw
+            out = self.window_step(inputs, generator)
             carry = out[:, -n:]
             if pieces:
                 last = pieces[-1]
@@ -195,7 +212,8 @@ class HierarchySynthesizer:
             pieces.append(out)
         result = torch.cat(pieces, dim=1).cpu().numpy()
         if fade_out:
-            result = np.stack([fade_out_to_mean(r, cfg, 0.0) for r in result])
+            result = np.stack([fade_out_to_mean(r, cfg, end_padding)
+                               for r in result])
         return result
 
     def stream(self, lang: Vocab, vid: int,
@@ -203,10 +221,35 @@ class HierarchySynthesizer:
                generator: Optional[torch.Generator] = None,
                db_ref: Optional[float] = None,
                executor=None) -> "GestureStream":
-        """A live synthesis stream over one audio source (GestureStream)."""
+        """A live synthesis stream over one audio source (GestureStream);
+        spectrogram-windowed models only (hierarchy, speech2gesture)."""
         return GestureStream(self, lang, vid, total_seconds=total_seconds,
                              generator=generator, db_ref=db_ref,
                              executor=executor)
+
+
+class HierarchySynthesizer(SlidingWindowSynthesizer):
+    """A HierarchySystem's window: the audio encoder on the window's
+    spectrogram, then the level cascade (synthesize_hierarchy.py:127-146);
+    besides the window loop, a fused loop (``generate_fused``)."""
+
+    def window_step(self, inputs, generator):
+        vids = inputs["vids"]
+        blend = self.system.audio(inputs["spec_w"], vids, self.dtype)[-1]
+        return self._cascade_step(inputs["text_w"], blend, inputs["carry"],
+                                  vids, generator)
+
+    def _cascade_step(self, text_w, blend_w, carry, vids, generator):
+        """Level cascade on precomputed blend features for one window."""
+        cfg = self.cfg
+        B = text_w.shape[0]
+        target = torch.zeros((B, cfg.n_poses, self.spec.pose_dim),
+                             device=self.device)
+        target[:, :cfg.n_pre_poses] = carry
+        outs, _, _, _, _ = run_cascade(self.system.gens, self.spec, target,
+                                       text_w, blend_w, vids,
+                                       cfg.n_pre_poses, self.dtype, generator)
+        return outs[-1].float()
 
     # ---- fused loop -------------------------------------------------------
     def prepare_fused(self, words_per_clip, lang: Vocab, vids: np.ndarray,
@@ -280,19 +323,52 @@ class HierarchySynthesizer:
         return self.run_fused(audio, plan)
 
 
+class MultimodalSynthesizer(SlidingWindowSynthesizer):
+    """A multimodal_context generator per window, on the raw waveform
+    window (synthesize.py:106-119)."""
+
+    uses_spec = False
+    uses_audio = True
+
+    def window_step(self, inputs, generator):
+        cfg = self.cfg
+        carry = inputs["carry"]
+        B, n, D = carry.shape
+        pre_seq = carry.new_zeros((B, cfg.n_poses, D + 1))
+        pre_seq[:, :n, :D] = carry
+        pre_seq[:, :n, D] = 1.0
+        out = self.system.gen(pre_seq, inputs["text_w"], inputs["audio_w"],
+                              inputs["vids"], self.dtype, generator)[0]
+        return out.float()
+
+
+class S2GSynthesizer(SlidingWindowSynthesizer):
+    """A speech2gesture generator per window (synthesize.py:100-105)."""
+
+    def window_step(self, inputs, generator):
+        return self.system.gen(inputs["spec_w"], inputs["carry"],
+                               self.dtype).float()
+
+
+SYNTHESIZERS = {"hierarchy": HierarchySynthesizer,
+                "multimodal_context": MultimodalSynthesizer,
+                "speech2gesture": S2GSynthesizer}
+
+
 def make_synthesizer(system, state: dict, low_latency: bool = False):
     """Synthesizer for ``system`` with parameters ``state`` (a state dict of
     the system's layout, e.g. ``system.state_dict()`` or the output of
-    ``convert.hierarchy_state``).
+    ``convert.system_state``).
 
     ``low_latency`` is kept for API parity with the JAX package, where it
-    selects the Pallas recurrence; here every recurrence on CUDA already
-    runs kernel B1, so it selects nothing."""
+    selects the Pallas recurrence of a hierarchy; here every recurrence on
+    CUDA already runs kernel B1, so it selects nothing."""
     del low_latency
-    if system.cfg.model != "hierarchy":
+    cls = SYNTHESIZERS.get(system.cfg.model)
+    if cls is None:
         raise ValueError(f"no synthesizer for model {system.cfg.model!r} in "
-                         "the port yet")
-    return HierarchySynthesizer(system, state)
+                         "the port yet (ROADMAP A.5)")
+    return cls(system, state)
 
 
 class GestureStream:
@@ -333,10 +409,12 @@ class GestureStream:
     window order, so a stream draws what ``generate`` draws at batch 1.
     ``executor``, when given, replaces the window call:
     ``executor(inputs, generator) -> (1, n_poses, pose_dim)`` with
-    ``inputs`` as for ``HierarchySynthesizer.run_window``.
+    ``inputs`` as for ``SlidingWindowSynthesizer.run_window``.  A
+    raw-waveform model (multimodal_context) is refused.
     """
 
-    def __init__(self, synth: HierarchySynthesizer, lang: Vocab, vid: int,
+    def __init__(self, synth: SlidingWindowSynthesizer, lang: Vocab,
+                 vid: int,
                  total_seconds: Optional[float] = None,
                  generator: Optional[torch.Generator] = None,
                  db_ref: Optional[float] = None, executor=None):
@@ -346,7 +424,7 @@ class GestureStream:
         self.cfg = cfg = synth.cfg
         self.lang = lang
         self.vid = int(vid)
-        self.generator = HierarchySynthesizer._generator(generator)
+        self.generator = SlidingWindowSynthesizer._generator(generator)
         self.unit_time, self.stride_time, _ = _window_layout(cfg, 1.0)
         self.spec_len = spectrogram_length_for(
             cfg.n_poses, cfg.motion_resampling_framerate)

@@ -49,8 +49,6 @@ from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train import losses
 from ha2g_torch.train.cascade import run_cascade
 
-BATCH_KEYS = ("text", "spec", "target", "vids")
-
 
 class HierarchySystem(nn.Module):
     """Builds the modules on ``device`` (CUDA unless ``device="cpu"``) with
@@ -58,6 +56,8 @@ class HierarchySystem(nn.Module):
     seed 0 when None), then the optimisers: Adam(b1 0.5, b2 0.999, eps
     1e-8) at ``learning_rate`` for audio, text and generators, and at
     ``learning_rate * discriminator_lr_weight`` for the discriminator."""
+
+    batch_keys = ("text", "spec", "target", "vids")
 
     def __init__(self, cfg: Config, n_words: int, n_speakers: int,
                  device=None, generator: torch.Generator | None = None):
@@ -103,7 +103,7 @@ class HierarchySystem(nn.Module):
     # ------------------------------------------------------------------
     def _batch(self, batch: dict) -> tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(batch[k]).to(self.device)
-                     for k in BATCH_KEYS)
+                     for k in self.batch_keys)
 
     def _cascade(self, blend, text, target, vids, generator):
         """The level cascade on audio blend features; float32 out (outs,

@@ -10,14 +10,17 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   every other key minimised.  ``checkpoint_{epoch:03d}`` every 10 epochs
   and ``checkpoint_final`` at the end; every evaluation is a row of
   ``history.jsonl``.
-* GAN steps run when ``epoch > loss_warmup``.
+* GAN steps run when ``epoch > loss_warmup`` for the hierarchy and
+  multimodal_context; speech2gesture's step has no warm-up.  The train
+  loader ships the fields the system reads (its ``batch_keys``).
 * The train steps' metrics are summed on the device and read once at the
   end of an epoch, so no step waits on a host read.
 * One ``torch.Generator`` on the device, seeded from ``random_seed``,
   drives the train steps' randomness.
 
-Only the hierarchy family is ported; a single device (multi-device is
-ROADMAP A.6).
+Ported families: hierarchy, multimodal_context and speech2gesture; the
+others raise (ROADMAP A.5).  A single device (multi-device is ROADMAP
+A.6).
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ from ha2g_torch.eval.metrics import beat_consistency, maje_and_accel
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.utils.average_meter import AverageMeter
 
-BASELINE_FAMILIES = ("multimodal_context", "seq2seq", "speech2gesture",
-                     "joint_embedding", "gesture_autoencoder")
+# the families not ported yet (ROADMAP A.5)
+UNPORTED_FAMILIES = ("seq2seq", "joint_embedding", "gesture_autoencoder")
+# the families whose train step takes gan_on (epoch > loss_warmup)
+GAN_GATED = ("hierarchy", "multimodal_context")
 
 
 def build_system(cfg: Config, n_words: int, n_speakers: int,
@@ -51,16 +56,21 @@ def build_system(cfg: Config, n_words: int, n_speakers: int,
     """The training system of ``cfg.model`` (reference init_model,
     train.py:50-88).  A word-embedding table, when given, initialises every
     text encoder's embedding, as in the JAX package."""
-    if cfg.model in BASELINE_FAMILIES:
+    if cfg.model in UNPORTED_FAMILIES:
         raise NotImplementedError(
-            f"model {cfg.model!r}: the port has the hierarchy only; the "
-            "baseline families and the embedders' training systems wait for "
-            "ROADMAP A.5")
-    if cfg.model != "hierarchy":
+            f"model {cfg.model!r}: the port has the hierarchy, "
+            "multimodal_context and speech2gesture; seq2seq, "
+            "joint_embedding, gesture_autoencoder and the embedders' "
+            "training systems wait for ROADMAP A.5")
+    if cfg.model == "hierarchy":
+        from ha2g_torch.train.hierarchy import HierarchySystem as cls
+    elif cfg.model == "multimodal_context":
+        from ha2g_torch.train.baselines import MultimodalGanSystem as cls
+    elif cfg.model == "speech2gesture":
+        from ha2g_torch.train.baselines import S2GSystem as cls
+    else:
         raise ValueError(f"unknown model {cfg.model!r}")
-    from ha2g_torch.train.hierarchy import HierarchySystem
-    system = HierarchySystem(cfg, n_words, n_speakers, device=device,
-                             generator=generator)
+    system = cls(cfg, n_words, n_speakers, device=device, generator=generator)
     if word_embeddings is not None:
         table = torch.as_tensor(np.asarray(word_embeddings, np.float32))
         with torch.no_grad():
@@ -91,7 +101,7 @@ class Trainer:
         # device; the val batches stay on the host (the metrics read them)
         self.train_loader = BatchLoader(
             train_samples, cfg.batch_size, shuffle=True,
-            keys=("text", "spec", "target", "vids"), device=self.device)
+            keys=self.system.batch_keys, device=self.device)
         # drop the odd-sized last val batch, as the JAX package does
         self.val_loader = BatchLoader(
             val_samples, cfg.batch_size, shuffle=False,
@@ -170,11 +180,10 @@ class Trainer:
     def train_epoch(self, epoch: int) -> dict:
         """One pass over the train loader; -> the metrics' epoch means and
         ``samples_per_s``."""
-        gan_on = epoch > self.cfg.loss_warmup
         sums: dict[str, torch.Tensor] = {}
         t0, n_steps, n_samples = time.perf_counter(), 0, 0
         for batch in self.train_loader:
-            metrics = self.system.train_step(batch, gan_on, self.generator)
+            metrics = self._train_step(batch, epoch)
             self.step += 1
             n_steps += 1
             n_samples += batch["target"].shape[0]
@@ -189,6 +198,15 @@ class Trainer:
                      ", ".join(f"{k}: {v:.4f}" for k, v in means.items())
                      + f" ({sps:.1f} samples/s)")
         return {**means, "samples_per_s": sps}
+
+    def _train_step(self, batch: dict, epoch: int) -> dict:
+        """The GAN-gated step of the hierarchy and multimodal_context
+        (GAN phase when epoch > loss_warmup), the plain one of
+        speech2gesture (JAX loop.py:119-136)."""
+        if self.cfg.model in GAN_GATED:
+            return self.system.train_step(
+                batch, epoch > self.cfg.loss_warmup, self.generator)
+        return self.system.train_step(batch, self.generator)
 
     def resume(self, path) -> int:
         """Restore parameters, batch-norm statistics, both optimisers and

@@ -291,9 +291,9 @@ def test_a_real_reference_pickle_loads(tmp_path):
 def test_importing_another_family_raises(tmp_path):
     cfg, _, state = jax_hierarchy("ted_gesture", 27)
     ref = et.export_hierarchy_checkpoint(state, cfg)
-    ref["args"].model = "multimodal_context"
+    ref["args"].model = "seq2seq"
     torch.save(ref, tmp_path / "mm.bin")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="A.5"):
         _quiet(["import-checkpoint", str(tmp_path / "mm.bin"),
                 str(tmp_path / "out"), "--device", "cpu"])
 

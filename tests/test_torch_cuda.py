@@ -32,9 +32,12 @@ def cuda():
 
 # the cluster split: ragged last slices (300 = 7 * 38 + 34, 45), one row
 # group (B <= 16) and several (96, 97: a ragged last group), FFMA rows
-# 1 / 4 / 8 and the bf16 tensor-core path at 16 rows
+# 1 / 4 / 8 and the bf16 tensor-core path at 16 rows; the GAN baselines'
+# batch 128 (16 clusters) at the multimodal generator's H = 300 and its
+# discriminator's H = 64 over 28 steps
 SHAPES = [(7, 3, 48), (34, 1, 300), (34, 8, 300), (34, 96, 300),
-          (34, 97, 300), (11, 5, 200), (6, 16, 45)]
+          (34, 97, 300), (11, 5, 200), (6, 16, 45), (34, 128, 300),
+          (28, 128, 64)]
 
 
 def _b1_args(T, B, H, dtype, device, seed=0):
@@ -270,3 +273,35 @@ def test_pinned_loader_matches_host_gather(cuda):
             for k in keys:
                 assert g[k].device.type == "cuda"
                 assert np.array_equal(g[k].cpu().numpy(), w[k]), k
+
+
+@pytest.mark.parametrize("gan_on", [False, True])
+def test_multimodal_train_step_launches_b1_as_its_dataflow(cuda, gan_on):
+    """A narrow multimodal_context step on the card: B1 once a GRU layer
+    a generator call (D phase fake, G, diversity) and once a D layer a D
+    call (D(out); D(real), D(fake) in the D phase); its backward for G,
+    D(out) with the GAN term and both D-phase calls; finite losses."""
+    import numpy as np
+    from pathlib import Path
+    from ha2g_torch.config import Config
+    from ha2g_torch.train.loop import build_system
+
+    cfg = Config.from_yaml(Path(__file__).resolve().parents[1] / "configs"
+                           / "multimodal_context.yaml", hidden_size=64,
+                           n_layers=2, compute_dtype="bfloat16")
+    system = build_system(cfg, 16, 4, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"text": rng.integers(0, 16, (8, 34)),
+             "audio": (rng.normal(size=(8, 36267)) * 0.1).astype(np.float32),
+             "target": (rng.normal(size=(8, 34, 27)) * 0.2)
+             .astype(np.float32),
+             "vids": rng.integers(0, 4, (8,))}
+    f0, b0 = gru_recurrence.launches, gru_backward_loop.launches
+    metrics = system.train_step(batch, gan_on,
+                                torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    L, d = cfg.n_layers, 4
+    assert gru_recurrence.launches - f0 == \
+        L * (2 + gan_on) + d * (1 + 2 * gan_on)
+    assert gru_backward_loop.launches - b0 == L + d * 3 * gan_on
+    assert all(torch.isfinite(v) for v in metrics.values())

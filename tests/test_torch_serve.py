@@ -25,11 +25,13 @@ import tests.torch_cpu  # noqa: F401  (one torch thread)
 from ha2g_tpu.synthesis import HierarchySynthesizer as JaxSynthesizer
 from tests.test_torch_bridge import (N_SPK, jax_hierarchy, jax_state_dict,
                                      port_config, vocabs)
+from tests.torch_serving import (http_server,  # noqa: F401  (fixture)
+                                 no_thread_outlives_module)
 
 from ha2g_torch import kernels
 from ha2g_torch.checkpoint import save_checkpoint
 from ha2g_torch.ops.mel import mulaw_encode_np
-from ha2g_torch.serve import GestureService, make_http_server
+from ha2g_torch.serve import GestureService
 from ha2g_torch.synthesis import _window_layout
 from ha2g_torch.train.hierarchy import HierarchySystem
 
@@ -64,11 +66,8 @@ def service(checkpoint):
 
 @pytest.fixture(scope="module")
 def http(service):
-    httpd = make_http_server(service, "127.0.0.1", 0)
-    threading.Thread(target=httpd.serve_forever, daemon=True).start()
-    yield f"http://127.0.0.1:{httpd.server_address[1]}"
-    httpd.shutdown()
-    httpd.server_close()
+    with http_server(service) as url:
+        yield url
 
 
 def _audio(seconds, seed):

@@ -25,6 +25,7 @@ from ha2g_tpu.synthesis import HierarchySynthesizer as JaxSynthesizer
 from ha2g_tpu.synthesis import fade_out_to_mean as jax_fade_out
 from tests.test_torch_bridge import (N_SPK, T, jax_hierarchy, jax_state_dict,
                                      port_config, vocabs)
+from tests.torch_serving import no_thread_outlives_module  # noqa: F401
 
 from ha2g_torch.ops.mel import log_mel_abs, mulaw_encode_np
 from ha2g_torch.synthesis import (_window_layout, fade_out_to_mean,
