@@ -83,7 +83,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    / ``import-checkpoint`` (every tensor equal); a warm ``GestureService``
    and its HTTP API (one request each, bit for bit the direct call on the
    same padded batch); the fp32 speech2gesture stream against
-   ``generate`` (1e-3) and the multimodal stream refused.
+   ``generate`` (1e-3) and the multimodal stream refused;
+10. the text and embedding baselines at full width in bf16
+   (configs_expressive/seq2seq.yaml, configs_expressive/joint_embed.yaml,
+   configs/gesture_autoencoder.yaml, configs_expressive/
+   gesture_autoencoder.yaml): the masked seq2seq encoder on B1 (ragged
+   lengths in [2, 32], H = 200, at the service's batches 1, 4 and 8, the
+   train batch 128 and the evaluate's batch) against its plain version,
+   forward and gradients; a warm-up and three train steps of each with
+   B1's launches step by step against the dataflow (seq2seq 2 forward and
+   2 backward, joint_embedding 4 and 4, the embedders 0), step times, peak
+   memory and a profiled step; an fp32 step of each on the card against
+   the CPU; seq2seq and joint_embedding: 20 s clips at B = 1 and 8 through
+   ``generate``, a checkpoint through ``export-checkpoint`` /
+   ``import-checkpoint``, a warm ``GestureService`` and its HTTP API (bit
+   for bit the direct call), their streams refused; each embedder trained
+   by ``cli train`` and its checkpoint_best named as ``eval_net_path`` of
+   another family's ``Trainer.evaluate``, which gives a finite FGD, B1
+   then held against its plain version at that evaluate's batch.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -92,6 +109,7 @@ checkout, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -221,26 +239,33 @@ def _b1_inputs(T, B, H, dtype, seed=0):
 
 
 # B1 shapes held against the plain version: the serving shapes (B = 4 is
-# the service's second bucket) and the train shapes (the baselines' batch
-# 128: the multimodal generator's H = 300, its discriminator's H = 64 on
-# 28 steps),
+# the service's second bucket; the seq2seq encoder's H = 200 over word
+# sequences of width 32 at the service's batches 1, 4 and 8) and the train
+# shapes (the baselines' batch 128: the multimodal generator's and the
+# joint embedding's decoder's H = 300, the multimodal discriminator's
+# H = 64 on 28 steps, the seq2seq encoder's H = 200, and sequences as
+# short as 2 and 17 steps),
 # one and several row groups (97: a ragged last group), hidden sizes whose
 # last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48)
 B1_SHAPES = ((34, 1, 300), (34, 4, 300), (34, 8, 300), (34, 16, 300),
              (34, 96, 300), (34, 97, 300), (7, 3, 48), (11, 5, 200),
-             (6, 16, 45), (34, 128, 300), (28, 128, 64))
+             (6, 16, 45), (34, 128, 300), (28, 128, 64), (32, 1, 200),
+             (32, 4, 200), (32, 8, 200), (32, 128, 200), (17, 128, 200),
+             (2, 128, 200))
 B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200), (34, 128, 300),
-                 (28, 128, 64))
+                 (28, 128, 64), (32, 128, 200), (17, 128, 200),
+                 (2, 128, 200))
 # B1's autograd against autograd through its plain version: the train
 # shapes of the hierarchy (generator and discriminator, batch 96) and of
-# the GAN baselines (batch 128)
-B1_GRAD_SHAPES = ((34, 96, 300), (34, 96, 64), (34, 128, 300), (28, 128, 64))
+# the baselines (batch 128)
+B1_GRAD_SHAPES = ((34, 96, 300), (34, 96, 64), (34, 128, 300), (28, 128, 64),
+                  (32, 128, 200), (17, 128, 200), (2, 128, 200))
 
 
-def _b1_check():
+def _b1_check(shapes=B1_SHAPES):
     from ha2g_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
     errs = {}
-    for T, B, H in B1_SHAPES:
+    for T, B, H in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = _b1_inputs(T, B, H, dtype)
             got = gru_recurrence(*args)
@@ -871,9 +896,24 @@ def _counters():
             "b3": C.contrastive_bwd_da, "b4": C.contrastive_bwd_db}
 
 
-def _reset_counts():
+def _set_counts(values):
     for k, fn in _counters().items():
-        setattr(fn, "calls" if k == "b1_backward" else "launches", 0)
+        setattr(fn, "calls" if k == "b1_backward" else "launches", values[k])
+
+
+def _reset_counts():
+    _set_counts(dict.fromkeys(_counters(), 0))
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside (a kernel held against its plain version on a
+    counted path) are left out of the counts."""
+    saved = _read_counts()
+    try:
+        yield
+    finally:
+        _set_counts(saved)
 
 
 def _read_counts():
@@ -2015,16 +2055,34 @@ def _serving(work: Path):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the GAN baselines (multimodal_context, speech2gesture)
+# phases 9 and 10: the baseline families
 # ---------------------------------------------------------------------------
 
-# the shipped configs at full width (batch 128), bf16, and the gan_on of
-# each step: a warm-up step and three GAN steps (speech2gesture's step has
-# no warm-up: four alike)
+# phase 9, the GAN baselines: the shipped configs at full width (batch
+# 128), bf16, and the gan_on of each step: a warm-up step and three GAN
+# steps (speech2gesture's step has no warm-up: four alike)
 BASELINE_RUNS = (("configs_expressive/multimodal_context.yaml",
                   (False, True, True, True)),
                  ("configs/speech2gesture.yaml", (True, True, True, True)))
+# phase 10, the text and embedding baselines: the shipped configs at full
+# width, bf16, a warm-up and three steps (no GAN phase)
+TEXT_RUNS = tuple((config, (True,) * 4) for config in (
+    "configs_expressive/seq2seq.yaml", "configs_expressive/joint_embed.yaml",
+    "configs/gesture_autoencoder.yaml",
+    "configs_expressive/gesture_autoencoder.yaml"))
 BASELINE_AUDIO_LEN = 36267      # round(34 / 15 * 16000): a train window
+WORD_SEQ = 32       # the word sequences' width (synthesizer and windows)
+# the masked seq2seq encoder on the card: its batches (the service's 1, 4
+# and 8, the train batch 128; the evaluate's batch is held where it runs)
+# and its hidden size and layers
+MASKED_ENCODER_BATCHES = (1, 4, 8, 128)
+MASKED_ENCODER = (200, 2)
+# the embedders' loop: (the embedder's config, the config of the run that
+# names it as eval_net_path, its clips' skeleton)
+EMBEDDER_LOOPS = (("configs/gesture_autoencoder.yaml",
+                   "configs/seq2seq.yaml", "TED_GESTURE"),
+                  ("configs_expressive/gesture_autoencoder.yaml",
+                   "configs_expressive/joint_embed.yaml", "TED_EXPRESSIVE"))
 
 
 def _baseline_cfg(config, **overrides):
@@ -2033,31 +2091,62 @@ def _baseline_cfg(config, **overrides):
         "compute_dtype": "bfloat16", "eval_net_path": "", **overrides})
 
 
+def _family(cfg) -> str:
+    """The model's path name; the embedders by their pose width."""
+    if cfg.model == "gesture_autoencoder":
+        return f"gesture_autoencoder:{cfg.pose_dim}"
+    return cfg.model
+
+
+def _word_seqs(rng, B):
+    """(B, 32) SOS..EOS token rows zero-padded past their length (drawn in
+    [2, 32], 32 and 2 among them) and the lengths."""
+    lengths = rng.integers(2, WORD_SEQ + 1, B)
+    lengths[:2] = (WORD_SEQ, 2)[:B]
+    seq = np.zeros((B, WORD_SEQ), np.int64)
+    for b, n in enumerate(lengths):
+        seq[b, :n] = rng.integers(4, N_WORDS, n)
+        seq[b, 0], seq[b, n - 1] = 1, 2
+    return seq, lengths
+
+
 def _baseline_batch(cfg, B, seed):
     rng = np.random.default_rng(seed)
     T = cfg.n_poses
-    return {"text": rng.integers(0, N_WORDS, (B, T)),
-            "audio": (rng.normal(size=(B, BASELINE_AUDIO_LEN)) * 0.1)
-            .astype(np.float32),
-            "spec": rng.normal(size=(B, 128, 70)).astype(np.float32),
-            "target": (rng.normal(size=(B, T, cfg.pose_dim)) * 0.2)
-            .astype(np.float32),
-            "vids": rng.integers(0, N_SPEAKERS, (B,))}
+    batch = {"text": rng.integers(0, N_WORDS, (B, T)),
+             "audio": (rng.normal(size=(B, BASELINE_AUDIO_LEN)) * 0.1)
+             .astype(np.float32),
+             "spec": rng.normal(size=(B, 128, 70)).astype(np.float32),
+             "target": (rng.normal(size=(B, T, cfg.pose_dim)) * 0.2)
+             .astype(np.float32),
+             "vids": rng.integers(0, N_SPEAKERS, (B,))}
+    batch["word_seq"], batch["word_lengths"] = _word_seqs(rng, B)
+    return batch
+
+
+def _window_b1(cfg) -> int:
+    """B1 launches of one generator forward (a synthesis window, an eval
+    batch): a bidirectional GRU layer each.  joint_embedding: its 4-layer
+    decoder (its context GRU is unidirectional, plain ops);
+    speech2gesture and the embedders run no GRU."""
+    return {"multimodal_context": cfg.n_layers, "seq2seq": cfg.n_layers,
+            "joint_embedding": 4}.get(cfg.model, 0)
 
 
 def _baseline_expected(cfg, gan_on):
-    """Per step of a baseline: B1 forward once a GRU layer a generator
-    call (the D phase's fake, the G forward, the diversity forward with
-    speaker / random z and a positive weight) and once a D layer a D call
-    (D(out) always, D(real) and D(fake) in the D phase); its backward for
-    the G forward, D(out) with the GAN term and both D-phase calls (the
-    diversity forward's output and z are detached by the regulariser, so
-    it takes no backward).  speech2gesture runs no GRU; no contrastive
-    loss in either."""
+    """Per train step of a baseline: multimodal_context launches B1 once a
+    GRU layer a generator call (the D phase's fake, the G forward, the
+    diversity forward with speaker / random z and a positive weight) and
+    once a D layer a D call (D(out) always, D(real) and D(fake) in the D
+    phase), and its backward for the G forward, D(out) with the GAN term
+    and both D-phase calls (the diversity forward's output and z are
+    detached by the regulariser, so it takes no backward).  The others
+    run one forward and its backward.  No contrastive loss in any."""
     zero = {"b1": 0, "b1_backward": 0, "b1_bwd": 0, "b2": 0, "b3": 0,
             "b4": 0}
     if cfg.model != "multimodal_context":
-        return zero
+        n = _window_b1(cfg)
+        return {**zero, "b1": n, "b1_backward": n, "b1_bwd": n}
     L, d_layers = cfg.n_layers, 4
     d_phase = gan_on and cfg.loss_gan_weight > 0.0
     div = cfg.z_type in ("speaker", "random") and cfg.loss_reg_weight > 0.0
@@ -2066,26 +2155,40 @@ def _baseline_expected(cfg, gan_on):
     return {**zero, "b1": fwd, "b1_backward": bwd, "b1_bwd": bwd}
 
 
+def _baseline_step(system, cfg, generator):
+    """-> step(batch, gan_on): the family's own train_step (gan_on reaches
+    multimodal_context alone; the TED Expressive embedder steps at epoch
+    0's learning rate)."""
+    if cfg.model == "multimodal_context":
+        return lambda b, gan_on, **kw: system.train_step(b, gan_on,
+                                                         generator, **kw)
+    if cfg.model == "gesture_autoencoder" and cfg.pose_dim == 126:
+        return lambda b, gan_on: system.train_step(
+            b, generator, lr=system.lr_for_epoch(0))
+    return lambda b, gan_on: system.train_step(b, generator)
+
+
 def _baseline_train(config, steps):
     """Train steps of a baseline at full width: launch counts step by
-    step, finite losses, step times, peak memory, and a profile of one GAN
-    step.  -> the kernels' launch counts over the steps."""
+    step, finite losses, step times, peak memory, and a profile of one
+    (GAN) step with its device busy ms, idle share and device operations.
+    -> the kernels' launch counts over the steps."""
     from ha2g_torch.train.loop import build_system
 
     cfg = _baseline_cfg(config)
+    family = _family(cfg)
     B = cfg.batch_size
     t0 = time.perf_counter()
     system = build_system(cfg, N_WORDS, N_SPEAKERS,
                           generator=torch.Generator().manual_seed(0))
-    _line("baseline-build", config=config, model=cfg.model,
+    _line("baseline-build", config=config, model=family,
+          system=type(system).__name__,
           seconds=f"{time.perf_counter() - t0:.1f}",
           params=sum(p.numel() for p in system.parameters()), batch=B,
           compute_dtype=cfg.compute_dtype, hidden=cfg.hidden_size,
           gru_layers=cfg.n_layers, batch_keys=",".join(system.batch_keys))
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    gated = cfg.model == "multimodal_context"
-    step = (lambda b, g: system.train_step(b, g, gen)) if gated else \
-        (lambda b, g: system.train_step(b, gen))
+    step = _baseline_step(system, cfg, torch.Generator(device="cuda")
+                          .manual_seed(1))
     batches = [_baseline_batch(cfg, B, 300 + i) for i in range(len(steps))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2103,60 +2206,79 @@ def _baseline_train(config, steps):
         values = {k: float(v) for k, v in metrics.items()}
         finite = all(np.isfinite(v) for v in values.values())
         ok = finite and counts == want
-        _line("baseline-step", model=cfg.model, step=i, gan_on=gan_on,
+        _line("baseline-step", model=family, step=i, gan_on=gan_on,
               ms=f"{ms:.1f}", finite=finite,
               **{k: f"{v:.4f}" for k, v in values.items()})
-        _line("baseline-launches", model=cfg.model, step=i,
+        _line("baseline-launches", model=family, step=i,
               **{k: f"{counts[k]}/{want[k]}" for k in want}, ok=ok)
         if not ok:
-            raise AssertionError(f"{cfg.model} train step {i} (gan_on="
+            raise AssertionError(f"{family} train step {i} (gan_on="
                                  f"{gan_on}) failed its checks")
         step_ms.append(ms)
     main_path = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gan_ms = statistics.median(step_ms[1:])
-    _line("baseline-e2e", model=cfg.model, first_step_ms=f"{step_ms[0]:.1f}",
-          gan_step_ms_median=f"{gan_ms:.1f}", gan_steps=len(step_ms) - 1,
+    _line("baseline-e2e", model=family, first_step_ms=f"{step_ms[0]:.1f}",
+          step_ms_median=f"{gan_ms:.1f}", steps=len(step_ms) - 1,
           samples_per_s=f"{B / gan_ms * 1e3:.1f}",
           peak_memory_gib=f"{peak:.2f}")
-    kernels = ("b1", "b1_bwd") if gated else ()
-    profiled = _profile(f"baseline_gan_step:{cfg.model}",
+    want = _baseline_expected(cfg, True)
+    kernels = ("b1", "b1_bwd") if want["b1"] else ()
+    profiled = _profile(f"baseline_gan_step:{family}",
                         lambda: step(_baseline_batch(cfg, B, 400), True),
                         gan_ms, kernels=kernels)
-    want = _baseline_expected(cfg, True)
     if profiled is not None and any(profiled[0][k][0] != want[k]
                                     for k in kernels):
-        raise AssertionError(f"the {cfg.model} GAN step's profile shows "
+        raise AssertionError(f"the {family} step's profile shows "
                              f"{profiled[0]} kernels, the dataflow {want}")
     del system
     torch.cuda.empty_cache()
     return main_path
 
 
-def _zero_grad_leaf(model: str, key: str) -> bool:
+def _zero_grad_leaf(family: str, key: str) -> bool:
     """A bias right before a train-mode batch norm: zero true gradient
     (the norm subtracts it), so either side's is rounding noise."""
-    if model == "multimodal_context":
+    if family == "multimodal_context":
         return key in {f"gen.audio_encoder.feat_extractor.{i}.bias"
                        for i in (0, 3, 6)} | {"dis.pre_conv.0.bias",
                                               "dis.pre_conv.3.bias"}
-    return (key.endswith(".0.bias") and key != "dis.net.0.bias") or \
-        key == "gen.pre_pose_encoder.0.bias"
+    if family == "speech2gesture":
+        return (key.endswith(".0.bias") and key != "dis.net.0.bias") or \
+            key == "gen.pre_pose_encoder.0.bias"
+    if family == "seq2seq":
+        return key == "decoder.decoder.pre_linear.0.bias"
+    enc = "encoder" if family == "gesture_autoencoder:126" \
+        else "pose_encoder"
+    leaves = {f"{enc}.net.{i}.0.bias" for i in range(3)} | {
+        f"{enc}.out_net.0.bias", f"{enc}.out_net.3.bias"}
+    if family == "joint_embedding":
+        return key in leaves | {
+            f"context_encoder.audio_encoder.feat_extractor.{i}.bias"
+            for i in (0, 3, 6)} | {"context_encoder.out.0.bias",
+                                   "decoder.pre_pose_net.0.bias"}
+    return key in leaves | {"decoder.pre_net.0.bias", "decoder.net.0.bias",
+                            "decoder.net.3.bias"}
 
 
 # a zero-gradient leaf's noise against its layer's weight gradient
 ZERO_GRAD_REL = 1e-3
+# the batch-normed waveform encoders' leaves take the audio bound
+AUDIO_PREFIXES = ("gen.audio_encoder.", "context_encoder.audio_encoder.")
 
 
 def _baseline_card_vs_cpu(config):
-    """The fp32 train step of a narrow baseline (hidden 64, 2 GRU layers,
-    batch 8; GAN phase on) on the card against the same port on the CPU:
-    the same weights, batch and noise, dropout 0; every loss term and
-    every gradient, the batch-normed audio encoder at the looser bound."""
+    """The fp32 train step of a narrow baseline (hidden 64, 2 GRU layers
+    where the config sets them, batch 8; GAN phase on) on the card against
+    the same port on the CPU: the same weights, batch and CPU generator
+    (so the same dropout masks, noise and coins; dropout 0 where the
+    config sets it); every loss term and every gradient, the batch-normed
+    audio encoders at the looser bound."""
     from ha2g_torch.train.loop import build_system
 
     cfg = _baseline_cfg(config, compute_dtype="float32", hidden_size=64,
                         n_layers=2, dropout_prob=0.0)
+    family = _family(cfg)
     systems = []
     for device in ("cpu", "cuda"):
         s = build_system(cfg, N_WORDS, N_SPEAKERS, device=device,
@@ -2168,12 +2290,10 @@ def _baseline_card_vs_cpu(config):
     cpu, gpu = systems
     gpu.load_state_dict(cpu.state_dict())
     batch = _baseline_batch(cfg, 8, 7)
-    if cfg.model == "multimodal_context":
-        rand_vids = torch.from_numpy(np.roll(batch["vids"], 1))
-        got = [s.train_step(batch, True, torch.Generator().manual_seed(4),
-                            rand_vids=rand_vids) for s in systems]
-    else:
-        got = [s.train_step(batch, torch.Generator()) for s in systems]
+    extra = {"rand_vids": torch.from_numpy(np.roll(batch["vids"], 1))} \
+        if cfg.model == "multimodal_context" else {}
+    got = [_baseline_step(s, cfg, torch.Generator().manual_seed(4))(
+        batch, True, **extra) for s in systems]
     worst_metric = max(abs(float(got[1][k]) / float(got[0][k]) - 1)
                        for k in got[0])
     # worst relative error by group over the leaves whose gradient is over
@@ -2190,15 +2310,17 @@ def _baseline_card_vs_cpu(config):
                 raise AssertionError(f"{key}: gradient on one side only")
             continue
         have = have.cpu()
-        if _zero_grad_leaf(cfg.model, key):
+        if _zero_grad_leaf(family, key):
+            # zero on both sides where the random mode's coin left the
+            # layer out of the step
             scale = grads[key[:-len("bias")] + "weight"].double().norm()
             rel = float(max(have.double().norm(), want.double().norm())
-                        / scale)
+                        / scale.clamp_min(1e-30))
             worst["zero"] = max(worst["zero"], rel)
             if rel > ZERO_GRAD_REL:
                 failed.append(key)
             continue
-        group = "audio" if key.startswith("gen.audio_encoder.") else "other"
+        group = "audio" if key.startswith(AUDIO_PREFIXES) else "other"
         rel = _rel(have, want)
         if want.double().norm() > TRAIN_GRAD_FLOOR:     # not noise alone
             worst[group] = max(worst[group], rel)
@@ -2207,7 +2329,7 @@ def _baseline_card_vs_cpu(config):
             failed.append(key)
     ok = (got[0].keys() == got[1].keys()
           and worst_metric <= TRAIN_METRIC_RTOL and not failed)
-    _line("baseline-fp32-card-vs-cpu", model=cfg.model, hidden=64,
+    _line("baseline-fp32-card-vs-cpu", model=family, hidden=64,
           gru_layers=2, batch=8, metrics=len(got[0]),
           metric_rel_err=f"{worst_metric:.2e}",
           grad_rel_err_audio_encoder=f"{worst['audio']:.2e}",
@@ -2217,16 +2339,17 @@ def _baseline_card_vs_cpu(config):
           tol=f"{TRAIN_METRIC_RTOL:.0e}/{TRAIN_AUDIO_GRAD_REL:.0e}/"
               f"{TRAIN_GRAD_REL:.0e}/{ZERO_GRAD_REL:.0e}", ok=ok)
     if not ok:
-        raise AssertionError(f"the fp32 {cfg.model} train step on the card "
+        raise AssertionError(f"the fp32 {family} train step on the card "
                              "disagrees with the CPU")
 
 
 def _baseline_serving(config, work: Path, paths):
-    """A 20 s clip at B = 1 and 8 through ``generate``; a checkpoint through
-    export-checkpoint / import-checkpoint (every tensor equal); a warm
-    GestureService and its HTTP API: one request each, bit for bit the
-    direct ``generate`` on the same padded batch; speech2gesture: an fp32
-    20 s stream against ``generate`` (1e-3); multimodal_context: a stream
+    """A 20 s clip at B = 1 and 8 through ``generate`` (B1's launches,
+    times, a profile at B = 8); a checkpoint through export-checkpoint /
+    import-checkpoint (every tensor equal); a warm GestureService and its
+    HTTP API: one request each, bit for bit the direct ``generate`` on the
+    same padded batch; speech2gesture: an fp32 20 s stream against
+    ``generate`` (1e-3); the others (the raw waveform or words): a stream
     refused."""
     import base64
     import threading
@@ -2240,7 +2363,7 @@ def _baseline_serving(config, work: Path, paths):
     cfg = _baseline_cfg(config)
     model = cfg.model
     key = f"serving:{model}"
-    per_window = cfg.n_layers if model == "multimodal_context" else 0
+    per_window = _window_b1(cfg)
     lang = _vocab()
     speaker = Vocab("vid", insert_default_tokens=False)
     for i in range(N_SPEAKERS - speaker.n_words):
@@ -2302,7 +2425,6 @@ def _baseline_serving(config, work: Path, paths):
     svc = GestureService(str(d / "imported"),
                          max_clip_seconds=SERVE_CLIP_SECONDS, max_batch=8)
     warm_s = time.perf_counter() - t
-    _, _, w_stream = _window_layout(cfg, 4.0)
     paths[key] += _expect_b1(f"{model} service warm-up", b0,
                              svc.stats["batches"] * W * per_window)
     httpd = make_http_server(svc, "127.0.0.1", 0)
@@ -2333,7 +2455,7 @@ def _baseline_serving(config, work: Path, paths):
             refused = False
             if code_s == 200:
                 svc.stream_finish(stream["stream_id"])
-        else:       # a raw-waveform model: every way in refuses a stream
+        else:       # not spectrogram-windowed: every way in refuses
             try:
                 svc.synth.stream(lang, 0)
                 refused = False
@@ -2390,20 +2512,135 @@ def _baseline_serving(config, work: Path, paths):
     return e2e
 
 
-def _baselines(work: Path):
-    """Phase 9; -> the kernels' launch counts by path."""
+def _masked_encoder_check(B):
+    """The seq2seq encoder at batch ``B`` on the card, lengths ragged in
+    [2, 32]: outputs, finals and every gradient with B1 (forward and
+    backward kernel) against the same encoder through autograd of B1's
+    plain version (``B1_ATOL`` / ``B1_GRAD_REL``, fp32)."""
+    from ha2g_torch.models import seq2seq
+    from ha2g_torch.models.common import init_parameters_
+    from ha2g_torch.ops.gru_kernel import gru_recurrence_plain
+    H, L = MASKED_ENCODER
+    enc = seq2seq.MaskedBiGRUEncoder(N_WORDS, 300, H, L, dropout=0.0)
+    init_parameters_(enc, torch.Generator().manual_seed(5))
+    enc.cuda()
+    seq, lengths = _word_seqs(np.random.default_rng(6), B)
+    tokens = torch.from_numpy(seq).cuda()
+    lens = torch.from_numpy(lengths).cuda()
+    g = torch.Generator().manual_seed(7)
+    ct_out = torch.randn((B, WORD_SEQ, H), generator=g).cuda()
+    ct_fin = torch.randn((2 * L, B, H), generator=g).cuda()
+    runs = []
+    kernel_fn = seq2seq.gru_recurrence_fn
+    for fn in (kernel_fn, gru_recurrence_plain):
+        seq2seq.gru_recurrence_fn = fn
+        try:
+            enc.zero_grad(set_to_none=True)
+            out, fin = enc(tokens, lens)
+            ((out * ct_out).sum() + (fin * ct_fin).sum()).backward()
+        finally:
+            seq2seq.gru_recurrence_fn = kernel_fn
+        runs.append((out.detach(), fin.detach(),
+                     [p.grad.clone() for p in enc.parameters()]))
+    torch.cuda.synchronize()
+    (out, fin, grads), (p_out, p_fin, p_grads) = runs
+    err = max((out - p_out).abs().max().item(),
+              (fin - p_fin).abs().max().item())
+    rel = max(_rel(a, b) for a, b in zip(grads, p_grads))
+    t = torch.arange(WORD_SEQ, device="cuda")
+    zero_past = not out[t[None] >= lens[:, None]].any()
+    ok = (err <= B1_ATOL[torch.float32] and rel <= B1_GRAD_REL[torch.float32]
+          and zero_past)
+    _line("masked-encoder-check", B=B, H=H, layers=L, T=WORD_SEQ,
+          lengths=f"{int(lengths.min())}..{int(lengths.max())}",
+          max_abs_err=f"{err:.3e}", grad_rel_err=f"{rel:.2e}",
+          zero_past_length=zero_past,
+          tol=f"{B1_ATOL[torch.float32]:.0e}/"
+              f"{B1_GRAD_REL[torch.float32]:.0e}", ok=ok)
+    if not ok:
+        raise AssertionError("the masked seq2seq encoder on B1 disagrees "
+                             "with its plain version")
+
+
+def _embedder_loop(work: Path, paths):
+    """The embedders' training closes the loop: ``cli train`` of each
+    gesture_autoencoder config (2 epochs at batch 32 on stored synthetic
+    clips, bf16), its checkpoint_best then named as ``eval_net_path`` of a
+    ``Trainer.evaluate`` of another family at full width, which must give
+    a finite FGD."""
+    from ha2g_torch import cli, skeleton
+    from ha2g_torch.data.storage import save_clips
+    from ha2g_torch.data.synthetic import synthetic_clips
+    from ha2g_torch.train.loop import Trainer
+
+    for ae_config, other, spec in EMBEDDER_LOOPS:
+        t0 = time.perf_counter()
+        data = work / spec
+        for split, (n, seed) in (("train", (12, 0)), ("val", (16, 1))):
+            save_clips(data / split, synthetic_clips(
+                getattr(skeleton, spec), n_clips=n, n_speakers=8, seed=seed))
+        ae_cfg = _baseline_cfg(ae_config)
+        out = work / f"ae{ae_cfg.pose_dim}"
+        _cli_call(["train", "--config", str(ROOT / ae_config), "--epochs",
+                   "2", "--batch_size", "32", "--subdivision_stride", "10",
+                   "--compute_dtype", "bfloat16", "--random_seed", "0",
+                   "--train_data_path", str(data / "train"),
+                   "--test_data_path", str(data / "val"),
+                   "--model_save_path", str(out), "--eval_net_path", ""],
+                  dict.fromkeys(_read_counts(), 0))
+        cfg = _baseline_cfg(other, eval_net_path=str(out / "checkpoint_best"),
+                            train_data_path=str(data / "train"),
+                            test_data_path=str(data / "val"))
+        cfg, lang, speaker, train_s, val_s = cli._prepare(cfg)
+        trainer = Trainer(cfg, train_s, val_s, lang, speaker,
+                          cli.make_evaluator(cfg, torch.device("cuda")))
+        n_val = len(trainer.val_loader)
+        b0 = _b1_launches()
+        val = trainer.evaluate(0)
+        paths[f"evaluate:{cfg.model}"] = _expect_b1(
+            f"{cfg.model} evaluate", b0, n_val * _window_b1(cfg))
+        # B1 at the evaluate's batches against its plain version: the
+        # seq2seq encoder (fp32, width 32, H = 200) or the joint
+        # embedding's decoder (n_poses steps, H = 300)
+        batches = sorted({len(i) for i in trainer.val_loader._indices()})
+        with _uncounted():
+            if cfg.model == "seq2seq":
+                for b in batches:
+                    _masked_encoder_check(b)
+            else:
+                _b1_check([(cfg.n_poses, b, 300) for b in batches])
+        ok = all(np.isfinite(val.get(k, np.nan))
+                 for k in ("loss", "frechet", "feat_dist", "diversity"))
+        _line("embedder-loop", embedder=_family(ae_cfg), evaluated=cfg.model,
+              val_batches=n_val, **{k: f"{v:.5f}" for k, v in val.items()},
+              seconds=f"{time.perf_counter() - t0:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"the port-trained {_family(ae_cfg)} "
+                                 "embedder gave no finite FGD")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def _baselines(work: Path, runs, phase: str, evaluate=None):
+    """Phase 9 (the GAN baselines) or 10 (the text and embedding
+    baselines, with ``evaluate`` the embedders' loop): train steps of each
+    run, each against the CPU in fp32, the serving of each family that
+    synthesizes; -> the kernels' launch counts by path."""
     t0 = time.perf_counter()
     counts = {}
-    for config, steps in BASELINE_RUNS:
-        model = _baseline_cfg(config).model
-        counts[f"training:{model}"] = _baseline_train(config, steps)
-    for config, _ in BASELINE_RUNS:
+    for config, steps in runs:
+        family = _family(_baseline_cfg(config))
+        counts[f"training:{family}"] = _baseline_train(config, steps)
+    for config, _ in runs:
         _baseline_card_vs_cpu(config)
-    paths = {f"serving:{_baseline_cfg(c).model}": 0
-             for c, _ in BASELINE_RUNS}
+    served = [c for c, _ in runs
+              if _baseline_cfg(c).model != "gesture_autoencoder"]
+    paths = {f"serving:{_baseline_cfg(c).model}": 0 for c in served}
     _reset_counts()
-    for config, _ in BASELINE_RUNS:
+    for config in served:
         _baseline_serving(config, work, paths)
+    if evaluate is not None:
+        evaluate(work, paths)
     serving = _read_counts()
     if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
         raise AssertionError("training kernels launched while serving")
@@ -2412,8 +2649,8 @@ def _baselines(work: Path):
     for path, n in paths.items():
         counts[path] = {**dict.fromkeys(serving, 0), "b1": n}
     if any(c[k] for c in counts.values() for k in ("b2", "b3", "b4")):
-        raise AssertionError("B2-B4 launched in phase 9")
-    _line("baselines-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+        raise AssertionError(f"B2-B4 launched in the {phase} phase")
+    _line(f"{phase}-phase", seconds=f"{time.perf_counter() - t0:.1f}",
           **{k: v["b1"] for k, v in counts.items()})
     return counts
 
@@ -2488,6 +2725,11 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             _b1_times(T, 128, H, dtype)
             _b1_backward_times(dtype, T=T, B=128, H=H)
+    # the seq2seq encoder's train shape: word sequences of 32, batch 128,
+    # H = 200
+    for dtype in (torch.bfloat16, torch.float32):
+        _b1_times(32, 128, 200, dtype)
+        _b1_backward_times(dtype, T=32, B=128, H=200)
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
     _sass_reckoning()
 
@@ -2510,7 +2752,15 @@ def main() -> int:
 
     # phase 9: the GAN baselines (train, card vs CPU, serve, checkpoints)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        baselines = _baselines(Path(tmp))
+        baselines = _baselines(Path(tmp), BASELINE_RUNS, "baselines")
+
+    # phase 10: the text and embedding baselines (the masked encoder on
+    # B1, train, card vs CPU, serve, checkpoints, the embedders' loop)
+    for b in MASKED_ENCODER_BATCHES:
+        _masked_encoder_check(b)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        baselines.update(_baselines(Path(tmp), TEXT_RUNS, "text",
+                                    _embedder_loop))
 
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
@@ -2518,6 +2768,7 @@ def main() -> int:
         "training:cli": cli_counts[k], **{
             path: n if k == "b1" else 0 for path, n in serve_paths.items()},
         **{path: c[k] for path, c in baselines.items()}}
+    # phases 9 and 10
     phase9 = lambda k: sum(c[k] for c in baselines.values())
     entries = [{
         "name": "gru_recurrence", "route": "cuda",

@@ -3,8 +3,10 @@
 A checkpoint is a directory:
 
   state.pt      ``torch.save`` of {"model": the system's state dict,
-                "g_opt" / "d_opt": both Adam optimisers' state dicts
-                (unless ``save_optimizer_state`` is off), "step": train
+                "g_opt" / "d_opt": both Adam optimisers' state dicts of
+                a GAN system, or "opt": the one of a single-optimiser
+                system (seq2seq, joint_embedding, gesture_autoencoder;
+                unless ``save_optimizer_state`` is off), "step": train
                 steps taken}; every tensor on the CPU;
   config.json   {"config": the Config, "extra": epoch, val metrics ...},
                 the JAX package's layout;
@@ -17,14 +19,16 @@ built system with strict keys, and restores parameters, batch-norm
 statistics and Adam moments exactly.  It also reads a checkpoint directory
 of the JAX package (ha2g_tpu/checkpoint.py), whose ``state.msgpack`` holds
 the training state tree (a hierarchy's ``HierarchyState``, a GAN
-baseline's ``GanState`` {gen, dis}): ``read_jax_state`` decodes its
+baseline's ``GanState`` {gen, dis}, another family's ``TrainState``):
+``read_jax_state`` decodes its
 parameters and batch-norm statistics (``utils/msgpack.py``), and
 ``convert.system_state`` maps them onto the port's keys.  Its optimiser
 moments are not carried, so such a checkpoint serves and evaluates but
 does not resume.  An FGD
 embedder is saved the same way by ``save_embedder`` (model only, with a
 config whose model is ``gesture_autoencoder``), and read by
-``load_embedder``.
+``load_embedder``; a trained gesture_autoencoder's checkpoint is one too
+(its system's state dict is the embedder's), port or JAX.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ def _cpu(obj):
     return obj
 
 
+def _optimizers(system) -> dict[str, Any]:
+    """The system's optimisers by checkpoint key: ``opt`` of a
+    single-optimiser system, else ``g_opt`` and ``d_opt``."""
+    if hasattr(system, "opt"):
+        return {"opt": system.opt}
+    return {"g_opt": system.g_opt, "d_opt": system.d_opt}
+
+
 def _write_meta(path: Path, cfg: Config, extra: Optional[dict]) -> None:
     meta = {"config": cfg.to_dict(), "extra": extra or {}}
     (path / "config.json").write_text(json.dumps(meta, default=float))
@@ -68,8 +80,8 @@ def save_checkpoint(path, system, cfg: Config, lang: Optional[Vocab] = None,
     state: dict[str, Any] = {"model": _cpu(system.state_dict()),
                              "step": int(step)}
     if cfg.save_optimizer_state:
-        state["g_opt"] = _cpu(system.g_opt.state_dict())
-        state["d_opt"] = _cpu(system.d_opt.state_dict())
+        for key, opt in _optimizers(system).items():
+            state[key] = _cpu(opt.state_dict())
     torch.save(state, path / STATE)
     _write_meta(path, cfg, extra)
     if lang is not None:
@@ -106,7 +118,7 @@ def read_jax_state(path) -> tuple[dict, dict]:
 
 def load_state(path, system, optimizers: bool = True) -> int:
     """Restore a checkpoint into ``system`` (strict keys) and, with
-    ``optimizers``, both Adam optimisers.  Returns the step count.  A JAX
+    ``optimizers``, its Adam optimisers.  Returns the step count.  A JAX
     checkpoint directory loads its parameters and batch-norm statistics;
     with ``optimizers`` it raises."""
     path = Path(path)
@@ -124,11 +136,14 @@ def load_state(path, system, optimizers: bool = True) -> int:
     state = read_state(path)
     system.load_state_dict(state["model"], strict=True)
     if optimizers:
-        if "g_opt" not in state:
+        opts = _optimizers(system)
+        if not set(opts) <= set(state):
             raise ValueError(f"{path} holds no optimiser state "
-                             "(saved with save_optimizer_state off)")
-        system.g_opt.load_state_dict(state["g_opt"])
-        system.d_opt.load_state_dict(state["d_opt"])
+                             f"{sorted(opts)} (saved with "
+                             "save_optimizer_state off, or by another "
+                             "family)")
+        for key, opt in opts.items():
+            opt.load_state_dict(state[key])
     return int(state["step"])
 
 
@@ -164,9 +179,14 @@ def save_embedder(path, net: torch.nn.Module, cfg: Config) -> None:
 
 
 def load_embedder(path) -> tuple[Config, dict[str, torch.Tensor]]:
-    """-> (the embedder's Config, its state dict)."""
+    """-> (the embedder's Config, its state dict) of an embedder directory
+    or a trained gesture_autoencoder's checkpoint (the port's or the JAX
+    package's)."""
     cfg, _ = load_config(path)
     if cfg.model != "gesture_autoencoder":
         raise ValueError(f"{path} is a {cfg.model!r} checkpoint, not an "
                          "embedder")
+    if not (Path(path) / STATE).exists() and (Path(path) / JAX_STATE).exists():
+        params, stats = read_jax_state(path)
+        return cfg, system_state(cfg.model, params, stats, cfg.n_layers)
     return cfg, read_state(path)["model"]

@@ -18,23 +18,28 @@ A CHECKPOINT is a directory written by the port (``state.pt``) or by the
 JAX package (``state.msgpack``): synthesize, eval, from-text, serve and
 export-checkpoint read either; ``train --resume`` needs the port's, which
 carries the optimiser state.  The model families: hierarchy,
-multimodal_context and speech2gesture (the others raise, naming ROADMAP
-A.5).  ``import-checkpoint`` turns a reference ``.bin`` (a hierarchy's, or
-a baseline's generic one) into a port checkpoint, ``export-checkpoint``
-writes a checkpoint or an FGD embedder directory as a reference ``.bin``,
-and ``import-evalnet`` turns a reference FGD embedder ``.bin`` into a
-directory ``eval_net_path`` can name.  ``--fused`` (synthesize) is the
-hierarchy's fused loop; other models run their window loop.  Live
-streams (``serve``) drive spectrogram-windowed models (hierarchy,
-speech2gesture).  ``from-text`` needs ``--wav`` (16 kHz mono) and
+multimodal_context, speech2gesture, seq2seq, joint_embedding and
+gesture_autoencoder (the FGD embedders' training: EmbeddingNet at pose 27,
+MotionAE at 126; ``eval`` gives its reconstruction loss, and it has no
+synthesis).  ``import-checkpoint`` turns a reference ``.bin`` (a
+hierarchy's, or a baseline's generic one) into a port checkpoint,
+``export-checkpoint`` writes a checkpoint as a reference ``.bin`` (a
+trained gesture_autoencoder or an FGD embedder directory in the
+evaluator's layout), and ``import-evalnet`` turns a reference FGD
+embedder ``.bin`` into a directory ``eval_net_path`` can name.
+``--fused`` (synthesize) is the hierarchy's fused loop; other models run
+their window loop.  Live streams (``serve``) drive spectrogram-windowed
+models (hierarchy, speech2gesture).  ``from-text`` needs ``--wav`` (16 kHz mono) and
 spreads the words evenly over it (no TTS, no forced alignment).
 
 Data paths in a config are a clip-storage directory (data/storage.py) or
 "synthetic" / "none" / empty, a built-in synthetic set; any other path
 that does not exist raises, as does a named ``wordembed_path``.
-``eval_net_path`` names an FGD embedder saved by
-``checkpoint.save_embedder``; without one the trainer selects checkpoints
-by the validation loss.  Every command runs on CUDA unless ``--device cpu``
+``eval_net_path`` names an FGD embedder: a directory saved by
+``checkpoint.save_embedder`` or ``import-evalnet``, or the
+``checkpoint_best`` of a gesture_autoencoder run (the port's or the JAX
+package's); without one the trainer selects checkpoints by the
+validation loss.  Every command runs on CUDA unless ``--device cpu``
 is given; without CUDA and without it, the commands raise.
 """
 
@@ -337,7 +342,7 @@ def cmd_import_checkpoint(argv: list[str]) -> int:
 
     ckpt = rc.load_reference_checkpoint(a.bin_path)
     cfg = rc.config_from_reference_args(ckpt["args"])
-    state = rc.import_checkpoint(ckpt, cfg)     # raises for a family left
+    state = rc.import_checkpoint(ckpt, cfg)     # raises for an embedder
     lang = rc.vocab_from_pickled(ckpt["lang_model"])
     speaker = rc.vocab_from_pickled(ckpt["speaker_model"])
     system = build_system(cfg, lang.n_words, max(speaker.n_words, 1),

@@ -68,6 +68,11 @@ class Config:
     loss_contrastive_pos_weight: float = 0.2
     loss_contrastive_neg_weight: float = 0.005
     loss_physical_weight: float = 0.01
+    # the TED Expressive FGD embedder's bone-cosine term (MotionAESystem)
+    cos_loss_weight: float = 50.0
+    # the pose-difference L1 term of EmbedSystem's loss (the reference's
+    # H36M feature-extractor trainer, train_feature_extractor.py:68-71)
+    embed_pose_diff_loss: bool = False
 
     # the frozen FGD embedder: a checkpoint directory (checkpoint.py
     # save_embedder) whose config has model "gesture_autoencoder"

@@ -21,8 +21,12 @@ The FGD embedders convert the same way: ``embedding_net_pose_state`` (TED
 Gesture's EmbeddingNet in pose mode) and ``motion_ae_state`` (TED
 Expressive's MotionAE); so do the baselines' ``GanState`` trees {gen, dis}:
 ``multimodal_state`` and ``speech2gesture_state`` (``gen.*`` holds the
-reference's ``gen_dict``, ``dis.*`` its ``dis_dict``).  ``system_state``
-picks the conversion of a config's model.
+reference's ``gen_dict``, ``dis.*`` its ``dis_dict``); and the
+single-network ``TrainState`` trees, whose state dict is the reference's
+``gen_dict`` itself: ``seq2seq_state`` (``Seq2SeqNet``),
+``embedding_net_full_state`` (joint_embedding's ``EmbeddingNet``), and
+the two embedders above for gesture_autoencoder.  ``system_state`` picks
+the conversion of a config's model.
 """
 
 from __future__ import annotations
@@ -61,9 +65,10 @@ def _bn(pp: dict, ss: dict, sd: dict, key: str) -> None:
     sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
 
 
-def _gru(p: dict, sd: dict, prefix: str, n_layers: int) -> None:
+def _gru(p: dict, sd: dict, prefix: str, n_layers: int,
+         bidirectional: bool = True) -> None:
     for layer in range(n_layers):
-        for d, sfx in enumerate(("", "_reverse")):
+        for d, sfx in enumerate(("", "_reverse")[:1 + bidirectional]):
             s = f"_l{layer}{sfx}"
             sd[f"{prefix}.weight_ih{s}"] = _t(np.asarray(p[f"w_ih_l{layer}"])[d].T)
             sd[f"{prefix}.weight_hh{s}"] = _t(np.asarray(p[f"w_hh_l{layer}"])[d].T)
@@ -327,14 +332,82 @@ def speech2gesture_state(params: dict, batch_stats: dict) -> dict[str, Any]:
                                                         batch_stats["dis"]))}
 
 
+def _gru_cell(p: dict, sd: dict, prefix: str, n_layers: int) -> None:
+    """GRUCell params (no direction axis) -> unidirectional torch keys."""
+    for layer in range(n_layers):
+        sd[f"{prefix}.weight_ih_l{layer}"] = _t(np.asarray(p[f"w_ih_l{layer}"]).T)
+        sd[f"{prefix}.weight_hh_l{layer}"] = _t(np.asarray(p[f"w_hh_l{layer}"]).T)
+        sd[f"{prefix}.bias_ih_l{layer}"] = _t(p[f"b_ih_l{layer}"])
+        sd[f"{prefix}.bias_hh_l{layer}"] = _t(p[f"b_hh_l{layer}"])
+
+
+def seq2seq_state(params: dict, batch_stats: dict) -> dict[str, Any]:
+    """The JAX Seq2SeqNet's params / batch_stats -> the reference's
+    Seq2SeqNet keys (seq2seq_net.py:219-254): ``encoder.*``,
+    ``decoder.decoder.*``."""
+    enc = params["MaskedBiGRUEncoder_0"]
+    n_layers = _n_layers(enc)
+    sd: dict[str, Any] = {"encoder.embedding.weight": _t(enc["embedding"])}
+    _gru(enc, sd, "encoder.gru", n_layers)
+    pref = "decoder.decoder"
+    dec = params["decoder_step"]
+    _dense(dec["Attn_0"]["Dense_0"], sd, f"{pref}.attn.attn")
+    sd[f"{pref}.attn.v"] = _t(dec["Attn_0"]["v"])
+    _dense(dec["Dense_0"], sd, f"{pref}.pre_linear.0")
+    _bn(dec["BatchNorm_0"], batch_stats["decoder_step"]["BatchNorm_0"], sd,
+        f"{pref}.pre_linear.1")
+    _gru_cell(dec["GRUCell_0"], sd, f"{pref}.gru", n_layers)
+    _dense(dec["Dense_1"], sd, f"{pref}.out")
+    return sd
+
+
+def embedding_net_full_state(params: dict, batch_stats: dict
+                             ) -> dict[str, Any]:
+    """The JAX joint_embedding EmbeddingNet's params / batch_stats -> the
+    reference's keys (embedding_net.py:260-294): ``context_encoder.*``
+    (TCN, waveform encoder, unidirectional GRU, head), ``pose_encoder.*``
+    and ``decoder.*`` (PoseDecoderGRU)."""
+    ctx, ctx_s = params["ContextEncoder_0"], batch_stats["ContextEncoder_0"]
+    tcn = ctx["TextEncoderTCN_0"]
+    sd = text_encoder_state(
+        tcn, sum(k.startswith("TemporalBlock_")
+                 for k in tcn["TemporalConvNet_0"]),
+        prefix="context_encoder.text_encoder.")
+    wav_encoder_state(ctx["WavEncoder_0"], ctx_s["WavEncoder_0"], sd,
+                      "context_encoder.audio_encoder")
+    _gru(ctx["GRU_0"], sd, "context_encoder.gru", _n_layers(ctx["GRU_0"]),
+         bidirectional=False)
+    _dense(ctx["Dense_0"], sd, "context_encoder.out.0")
+    _bn(ctx["BatchNorm_0"], ctx_s["BatchNorm_0"], sd, "context_encoder.out.1")
+    _dense(ctx["Dense_1"], sd, "context_encoder.out.3")
+    _dense(ctx["Dense_2"], sd, "context_encoder.fc_mu")
+    _dense(ctx["Dense_3"], sd, "context_encoder.fc_logvar")
+    _pose_encoder(params["PoseEncoderConv_0"],
+                  batch_stats["PoseEncoderConv_0"], sd, "pose_encoder")
+    dec, dec_s = params["PoseDecoderGRU_0"], batch_stats["PoseDecoderGRU_0"]
+    _dense(dec["Dense_0"], sd, "decoder.pre_pose_net.0")
+    _bn(dec["BatchNorm_0"], dec_s["BatchNorm_0"], sd,
+        "decoder.pre_pose_net.1")
+    _dense(dec["Dense_1"], sd, "decoder.pre_pose_net.3")
+    _gru(dec["GRU_0"], sd, "decoder.gru", _n_layers(dec["GRU_0"]))
+    _dense(dec["Dense_2"], sd, "decoder.out.0")
+    _dense(dec["Dense_3"], sd, "decoder.out.2")
+    return sd
+
+
 def system_state(model: str, params: dict, batch_stats: dict,
                  n_layers: int) -> dict[str, Any]:
     """The port's state dict of a JAX training system of ``model`` (a
     hierarchy's ``params["gens"]`` a list by level)."""
     if model == "hierarchy":
         return hierarchy_state(params, batch_stats, n_layers)
-    if model == "multimodal_context":
-        return multimodal_state(params, batch_stats)
-    if model == "speech2gesture":
-        return speech2gesture_state(params, batch_stats)
-    raise ValueError(f"no conversion for model {model!r}")
+    convert = {"multimodal_context": multimodal_state,
+               "speech2gesture": speech2gesture_state,
+               "seq2seq": seq2seq_state,
+               "joint_embedding": embedding_net_full_state}.get(model)
+    if model == "gesture_autoencoder":
+        convert = motion_ae_state if "MotionEncoderConv_0" in params \
+            else embedding_net_pose_state
+    if convert is None:
+        raise ValueError(f"no conversion for model {model!r}")
+    return convert(params, batch_stats)

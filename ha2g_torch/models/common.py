@@ -10,7 +10,8 @@ drawn from an explicit ``torch.Generator`` by ``init_parameters_``:
 * embeddings N(0, 1);
 * layers marked ``init = "kaiming_normal_fan_out"`` (the SE-ResNet convs)
   N(0, 2/fan_out); ``init = "normal_0.01"`` (the TCN decoder) N(0, 0.01^2)
-  with a zero bias;
+  with a zero bias; modules marked ``init = "normal_1/n"`` (the seq2seq
+  attention's ``v``) each of their own parameters N(0, 1/n), n its size;
 * weight-normed convs: v as a conv weight, g = ||v|| per output channel;
 * batch norm keeps its constructor's scale 1, shift 0, running mean 0 and
   running var 1.
@@ -46,6 +47,17 @@ class Conv2d(nn.Conv2d):
     def forward(self, x, dtype: torch.dtype = torch.float32):
         bias = None if self.bias is None else self.bias.to(dtype)
         return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """ConvTranspose1d on (B, C, T)."""
+
+    def forward(self, x, dtype: torch.dtype = torch.float32):
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.conv_transpose1d(x.to(dtype), self.weight.to(dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -135,7 +147,7 @@ def init_parameters_(root: nn.Module, generator: torch.Generator) -> None:
     """Initialize every parameter and buffer under ``root`` in a fixed module
     order from ``generator`` (parameters must lie on its device)."""
     from ha2g_torch.models.tcn import WeightNormConv1d
-    from ha2g_torch.ops.gru import GRU
+    from ha2g_torch.ops.gru import _GRUParams
 
     g = generator
     for m in root.modules():
@@ -164,6 +176,9 @@ def init_parameters_(root: nn.Module, generator: torch.Generator) -> None:
             _uniform_(m.weight_v, 1.0 / math.sqrt(fan_in), g)
             m.weight_g.copy_(m.weight_v.flatten(1).norm(dim=1).view(-1, 1, 1))
             _uniform_(m.bias, 1.0 / math.sqrt(fan_in), g)
-        elif isinstance(m, GRU):
+        elif isinstance(m, _GRUParams):
             for p in m.parameters(recurse=False):
                 _uniform_(p, 1.0 / math.sqrt(m.hidden_size), g)
+        elif mode == "normal_1/n":
+            for p in m.parameters(recurse=False):
+                p.normal_(0.0, 1.0 / math.sqrt(p.numel()), generator=g)

@@ -25,11 +25,11 @@ class MotionAE(nn.Module):
                                        heads=False)
         self.decoder = PoseDecoderConv(pose_dim, N_FRAMES, latent_dim)
 
-    def forward(self, poses):
-        """(B, 34, pose_dim) -> (reconstruction, latent)."""
+    def forward(self, poses, dtype: torch.dtype = torch.float32):
+        """(B, 34, pose_dim) -> (reconstruction, latent), float32."""
         poses = poses.reshape(poses.shape[0], poses.shape[1], -1)
-        z = self.encoder(poses)[0]
-        return self.decoder(z), z
+        z = self.encoder(poses, dtype)[0]
+        return self.decoder(z, dtype).float(), z.float()
 
     @torch.no_grad()
     def embed(self, poses):

@@ -1,6 +1,6 @@
 """Checkpoints of the reference PyTorch code (``.bin`` files), both ways,
-for the hierarchy, the GAN baselines (multimodal_context, speech2gesture)
-and the FGD embedders.
+for the hierarchy, the baselines (multimodal_context, speech2gesture,
+seq2seq, joint_embedding) and the FGD embedders.
 
 The port's copy of those parts of ``ha2g_tpu/import_torch.py`` (loading,
 ``vocab_from_pickled``, ``config_from_reference_args``,
@@ -19,8 +19,12 @@ names, so the weights move by prefix alone: ``audio_dict`` <-> ``audio.``,
 <-> ``gens.{l-1}.``; a leading ``module.`` (DataParallel) is stripped.
 A baseline's generic checkpoint (train.py:239-244, loaded by
 train_utils.py:197-213) holds ``args``, ``epoch``, ``lang_model``,
-``speaker_model``, ``pose_dim``, ``gen_dict`` <-> ``gen.`` and
-``dis_dict`` <-> ``dis.``.
+``speaker_model``, ``pose_dim`` and, for a GAN baseline, ``gen_dict`` <->
+``gen.`` and ``dis_dict`` <-> ``dis.``; seq2seq and joint_embedding
+have no discriminator, and their ``gen_dict`` is the port's whole state
+dict (the port's copy of ``import_torch.convert_seq2seq`` /
+``convert_embedding_net_full`` and their exporters: the keys match, so
+the move is the identity).
 An FGD embedder's file holds ``gen_dict`` (EmbeddingNet, pose_dim 27) or
 ``motion_ae`` and ``latent_dim`` (MotionAE, pose_dim 126).
 
@@ -124,9 +128,14 @@ def _prefixes(n_levels: int) -> list[tuple[str, str]]:
          for level in range(n_levels)]
 
 
-# (reference dict, port prefix) pairs of a GAN baseline's checkpoint
-GENERIC_PREFIXES = [("gen_dict", "gen."), ("dis_dict", "dis.")]
-GENERIC_FAMILIES = ("multimodal_context", "speech2gesture")
+# (reference dict, port prefix) pairs of a baseline's generic checkpoint
+GENERIC_PREFIXES = {"multimodal_context": [("gen_dict", "gen."),
+                                           ("dis_dict", "dis.")],
+                    "speech2gesture": [("gen_dict", "gen."),
+                                       ("dis_dict", "dis.")],
+                    "seq2seq": [("gen_dict", "")],
+                    "joint_embedding": [("gen_dict", "")]}
+GENERIC_FAMILIES = tuple(GENERIC_PREFIXES)
 
 
 def _tensor(v) -> torch.Tensor:
@@ -146,13 +155,14 @@ def import_hierarchy_checkpoint(ckpt: dict, n_levels: int) -> dict:
 
 
 def import_generic_checkpoint(ckpt: dict, cfg: Config) -> dict:
-    """A reference generic checkpoint dict of a GAN baseline -> the port's
-    state dict (``gen.*``, ``dis.*``)."""
+    """A reference generic checkpoint dict of a baseline -> the port's
+    state dict (a GAN baseline's ``gen.*``, ``dis.*``; seq2seq's and
+    joint_embedding's ``gen_dict`` keys as they are).  Another family
+    raises ValueError."""
     if cfg.model not in GENERIC_FAMILIES:
-        raise NotImplementedError(
-            f"model {cfg.model!r}: importing this family is not ported yet "
-            "(ROADMAP A.5)")
-    return _import(ckpt, GENERIC_PREFIXES)
+        raise ValueError(f"no generic importer for model {cfg.model!r} "
+                         f"(the generic families: {GENERIC_FAMILIES})")
+    return _import(ckpt, GENERIC_PREFIXES[cfg.model])
 
 
 def import_checkpoint(ckpt: dict, cfg: Config) -> dict:
@@ -212,12 +222,13 @@ def export_generic_checkpoint(state: dict, cfg: Config,
                               lang: Optional[Vocab] = None,
                               speaker: Optional[Vocab] = None,
                               epoch: int = 0) -> dict:
-    """The port's state dict of a GAN baseline -> the reference's generic
+    """The port's state dict of a baseline -> the reference's generic
     checkpoint dict {args, epoch, lang_model, speaker_model, pose_dim,
-    gen_dict, dis_dict} (train.py:239-244)."""
+    gen_dict[, dis_dict]} (train.py:239-244)."""
     if cfg.model not in GENERIC_FAMILIES:
         raise ValueError(f"no generic exporter for model {cfg.model!r}")
-    return _export(state, cfg, lang, speaker, epoch, GENERIC_PREFIXES)
+    return _export(state, cfg, lang, speaker, epoch,
+                   GENERIC_PREFIXES[cfg.model])
 
 
 def export_checkpoint(state: dict, cfg: Config,

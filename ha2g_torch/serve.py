@@ -277,8 +277,9 @@ class GestureService:
     def open_stream(self, vid: int = 0,
                     total_seconds: Optional[float] = None) -> str:
         """Open a live GestureStream; -> its id.  Idle streams past
-        ``stream_idle_timeout`` are dropped first.  A raw-waveform model
-        (multimodal_context) raises ValueError."""
+        ``stream_idle_timeout`` are dropped first.  A model that is not
+        spectrogram-windowed (multimodal_context, joint_embedding, seq2seq)
+        raises ValueError."""
         if not self.supports_streaming():
             raise ValueError(
                 f"model {self.cfg.model!r} is not spectrogram-windowed; "

@@ -7,9 +7,14 @@ cross-faded (reference synthesize.py:36-209, synthesize_hierarchy.py:
 36-215).  ``SlidingWindowSynthesizer`` holds the window loop; a subclass
 gives one window's step: ``HierarchySynthesizer`` (the audio encoder on
 the window's spectrogram, then the level cascade), ``S2GSynthesizer``
-(the speech2gesture generator on the spectrogram window) and
+(the speech2gesture generator on the spectrogram window),
 ``MultimodalSynthesizer`` (the multimodal_context generator on the raw
-waveform window).  ``make_synthesizer`` picks by the config's model.
+waveform window), ``Seq2SeqSynthesizer`` (the seq2seq net on the window's
+SOS..EOS word sequence, teacher-seeded with the carry; the clip is then
+smoothed across window joints, ``polyfit_smooth``) and
+``EmbedSynthesizer`` (joint_embedding decoding from the speech latent of
+the window's words and raw waveform).  ``make_synthesizer`` picks by the
+config's model.
 
 The hierarchy has a second loop that computes the same thing,
 ``generate_fused`` (``prepare_fused`` + ``run_fused``): the audio encoder
@@ -39,7 +44,7 @@ import torch.nn.functional as F
 
 from ha2g_torch.config import Config
 from ha2g_torch.data.dataset import spectrogram_length_for
-from ha2g_torch.data.vocab import Vocab
+from ha2g_torch.data.vocab import EOS_TOKEN, SOS_TOKEN, Vocab
 from ha2g_torch.ops.mel import (HOP, N_FFT, batched_log_mel,
                                 batched_log_mel_i16, batched_log_mel_mulaw,
                                 log_mel_abs, pcm_to_float_np)
@@ -48,6 +53,8 @@ from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train.cascade import run_cascade
 
 SR = 16000
+# the word-sequence width of a window (the JAX package's fixed 32)
+WORD_SEQ_WIDTH = 32
 
 
 def _mel_any(audio: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -87,6 +94,18 @@ def frame_aligned_word_indices(words, start_time, end_time, n_frames,
     return ext
 
 
+def word_seq_indices(words, start_time, end_time, lang: Vocab,
+                     max_words: int = WORD_SEQ_WIDTH) -> np.ndarray:
+    """The SOS..EOS token sequence of one window's words
+    (synthesize_hierarchy.py:102-111; JAX synthesis.py:82)."""
+    seq = [SOS_TOKEN]
+    for w in words:
+        if start_time <= w[1] <= end_time:
+            seq.append(lang.get_word_index(w[0]))
+    seq.append(EOS_TOKEN)
+    return np.asarray(seq[:max_words], np.int64)
+
+
 def _cross_fade(prev_tail: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Linear blend over the n_pre overlap (synthesize_hierarchy.py:153-162)."""
     n = head.shape[1]
@@ -103,6 +122,11 @@ class SlidingWindowSynthesizer:
 
     uses_spec = True
     uses_audio = False
+    # the window's SOS..EOS word sequence ("word_seq" (B, 32), zero-padded,
+    # and "word_lengths" (B,))
+    uses_word_seq = False
+    # cubic smoothing across window joints after the loop (seq2seq)
+    smooth = False
 
     def __init__(self, system, state: dict):
         system.load_state_dict(state, strict=True)
@@ -121,7 +145,8 @@ class SlidingWindowSynthesizer:
     def window_step(self, inputs: dict, generator) -> torch.Tensor:
         """One window: inputs {"text_w" (B, T), "carry" (B, n_pre,
         pose_dim), "vids" (B,), "spec_w" (B, 128, S) and / or "audio_w"
-        (B, n)} as tensors on the device -> float32 (B, T, pose_dim)."""
+        (B, n) and / or "word_seq" (B, 32) with "word_lengths" (B,)} as
+        tensors on the device -> float32 (B, T, pose_dim)."""
         raise NotImplementedError
 
     @torch.inference_mode()
@@ -132,7 +157,7 @@ class SlidingWindowSynthesizer:
         serving layer batches."""
         dev = self.device
         t = {k: torch.as_tensor(v, device=dev).long()
-             if k in ("text_w", "vids")
+             if k in ("text_w", "vids", "word_seq", "word_lengths")
              else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for k, v in inputs.items()}
         return self.window_step(t, generator).cpu().numpy()
@@ -145,6 +170,16 @@ class SlidingWindowSynthesizer:
                 self.cfg.n_poses, lang) for w in words_per_clip])
             for i in range(num_sub)])                       # (W, B, T)
         return torch.from_numpy(text).to(self.device)
+
+    def _word_seqs(self, words_per_clip, lang, start, end) -> dict:
+        seqs = [word_seq_indices(w, start, end, lang)
+                for w in words_per_clip]
+        padded = np.zeros((len(seqs), WORD_SEQ_WIDTH), np.int64)
+        for b, seq in enumerate(seqs):
+            padded[b, :len(seq)] = seq
+        return {"word_seq": torch.from_numpy(padded).to(self.device),
+                "word_lengths": torch.as_tensor(
+                    [len(seq) for seq in seqs], device=self.device)}
 
     @torch.inference_mode()
     def generate(self, audio: np.ndarray, words_per_clip: Sequence,
@@ -159,7 +194,8 @@ class SlidingWindowSynthesizer:
         last one edge-padded); raw-waveform windows start at
         floor(start / clip * n_samples), are int(unit_time * 16000)
         samples long and the last one is zero-padded (int16 / mu-law
-        audio is decoded on the host first).  ``fade_out`` appends the
+        audio is decoded on the host first).  seq2seq's clip is smoothed
+        across window joints (``polyfit_smooth``).  ``fade_out`` appends the
         fade to the mean pose (``fade_out_to_mean``) over the last
         window's zero padding, 0 s for a spectrogram model."""
         cfg = self.cfg
@@ -202,6 +238,10 @@ class SlidingWindowSynthesizer:
                         end_padding = (audio_len - aw.shape[1]) / SR
                     aw = F.pad(aw, (0, audio_len - aw.shape[1]))
                 inputs["audio_w"] = aw
+            if self.uses_word_seq:
+                inputs.update(self._word_seqs(
+                    words_per_clip, lang, i * stride_time,
+                    i * stride_time + unit_time))
             out = self.window_step(inputs, generator)
             carry = out[:, -n:]
             if pieces:
@@ -211,6 +251,8 @@ class SlidingWindowSynthesizer:
                                  out[:, n:]], dim=1)
             pieces.append(out)
         result = torch.cat(pieces, dim=1).cpu().numpy()
+        if self.smooth:
+            result = np.stack([polyfit_smooth(r, cfg) for r in result])
         if fade_out:
             result = np.stack([fade_out_to_mean(r, cfg, end_padding)
                                for r in result])
@@ -350,9 +392,46 @@ class S2GSynthesizer(SlidingWindowSynthesizer):
                                self.dtype).float()
 
 
+class Seq2SeqSynthesizer(SlidingWindowSynthesizer):
+    """A seq2seq net per window on the window's word sequence, its first
+    n_pre_poses frames teacher-forced with the carry (synthesize.py:92-99);
+    the clip is smoothed across window joints afterwards."""
+
+    uses_spec = False
+    uses_word_seq = True
+    smooth = True
+
+    def window_step(self, inputs, generator):
+        cfg = self.cfg
+        carry = inputs["carry"]
+        poses = carry.new_zeros((carry.shape[0], cfg.n_poses,
+                                 self.spec.pose_dim))
+        poses[:, :cfg.n_pre_poses] = carry
+        return self.system(inputs["word_seq"], inputs["word_lengths"], poses,
+                           self.dtype, generator)
+
+
+class EmbedSynthesizer(SlidingWindowSynthesizer):
+    """joint_embedding per window: decode from the speech latent of the
+    window's words and raw waveform, the pre-poses taken from the carry
+    (synthesize.py mode 'speech'; eval_embed in train_joint_embed.py:
+    54-62).  The context latent is a draw around its mean, from the
+    generator."""
+
+    uses_spec = False
+    uses_audio = True
+
+    def window_step(self, inputs, generator):
+        return self.system(inputs["text_w"], inputs["audio_w"],
+                           inputs["carry"], None, input_mode="speech",
+                           dtype=self.dtype, generator=generator)[-1]
+
+
 SYNTHESIZERS = {"hierarchy": HierarchySynthesizer,
                 "multimodal_context": MultimodalSynthesizer,
-                "speech2gesture": S2GSynthesizer}
+                "speech2gesture": S2GSynthesizer,
+                "seq2seq": Seq2SeqSynthesizer,
+                "joint_embedding": EmbedSynthesizer}
 
 
 def make_synthesizer(system, state: dict, low_latency: bool = False):
@@ -366,8 +445,8 @@ def make_synthesizer(system, state: dict, low_latency: bool = False):
     del low_latency
     cls = SYNTHESIZERS.get(system.cfg.model)
     if cls is None:
-        raise ValueError(f"no synthesizer for model {system.cfg.model!r} in "
-                         "the port yet (ROADMAP A.5)")
+        raise ValueError(f"no synthesizer for model {system.cfg.model!r} "
+                         f"(the synthesizing families: {sorted(SYNTHESIZERS)})")
     return cls(system, state)
 
 
@@ -409,8 +488,10 @@ class GestureStream:
     window order, so a stream draws what ``generate`` draws at batch 1.
     ``executor``, when given, replaces the window call:
     ``executor(inputs, generator) -> (1, n_poses, pose_dim)`` with
-    ``inputs`` as for ``SlidingWindowSynthesizer.run_window``.  A
-    raw-waveform model (multimodal_context) is refused.
+    ``inputs`` as for ``SlidingWindowSynthesizer.run_window``.  A model
+    that is not spectrogram-windowed (multimodal_context, joint_embedding:
+    the raw waveform; seq2seq: words alone) is refused, as in the JAX
+    package.
     """
 
     def __init__(self, synth: SlidingWindowSynthesizer, lang: Vocab,
@@ -558,6 +639,31 @@ class GestureStream:
         if self._tail is not None:
             outs.append(self._tail)
         return np.concatenate(outs, axis=0) if outs else self._empty()
+
+
+def polyfit_smooth(out_dir_vec: np.ndarray, cfg: Config) -> np.ndarray:
+    """Cubic-polyfit smoothing across window joints of a seq2seq clip
+    (reference synthesize.py:163-185; JAX synthesis.py:767).
+    out_dir_vec: (total_frames, D)."""
+    n_smooth = cfg.n_pre_poses
+    stride = cfg.n_poses - cfg.n_pre_poses
+    total = out_dir_vec.shape[0]
+    num_sub = max((total - cfg.n_poses) // stride + 1, 1)
+    out = out_dir_vec.copy()
+    for i in range(num_sub):
+        start = cfg.n_pre_poses + i * stride - n_smooth
+        if start < 0:
+            start, end = 0, n_smooth * 2
+        else:
+            end = start + n_smooth * 3
+        y = out[start:end]
+        if y.shape[0] < 4:
+            continue
+        x = np.arange(y.shape[0])
+        coeffs = np.polyfit(x, y, 3)
+        out[start:end] = np.stack(
+            [np.poly1d(coeffs[:, k])(x) for k in range(y.shape[1])], axis=1)
+    return out
 
 
 def fade_out_to_mean(out_dir_vec: np.ndarray, cfg: Config,

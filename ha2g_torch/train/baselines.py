@@ -1,9 +1,9 @@
-"""Training systems of the GAN baselines (the port of
-ha2g_tpu/train/baselines.py): ``MultimodalGanSystem`` (multimodal_context,
-reference train_gan.py:13-103) and ``S2GSystem`` (speech2gesture,
-train_speech2gesture.py:5-37).
+"""Training systems of the baseline families (the port of
+ha2g_tpu/train/baselines.py).
 
-Each holds a generator ``gen`` and a discriminator ``dis`` (its state dict
+The GAN systems, ``MultimodalGanSystem`` (multimodal_context, reference
+train_gan.py:13-103) and ``S2GSystem`` (speech2gesture,
+train_speech2gesture.py:5-37), each hold a generator ``gen`` and a discriminator ``dis`` (its state dict
 ``gen.*`` / ``dis.*``: the reference's ``gen_dict`` / ``dis_dict`` keys),
 two Adam optimisers (b1 0.5, b2 0.999, eps 1e-8), G at ``learning_rate``
 and D at ``learning_rate * discriminator_lr_weight``, and the train and
@@ -20,10 +20,28 @@ eval steps, in the style of ``train/hierarchy.py``:
 * the diversity regulariser detaches the second forward's output and both
   z, so that forward takes no gradient and runs without a graph.
 
+The single-optimiser systems are the model itself with one Adam ``opt``
+(so their state dict is the net's, with the reference's ``gen_dict``
+keys, and an FGD embedder's checkpoint is the embedder's state dict):
+
+* ``Seq2SeqSystem`` (seq2seq, train_seq2seq.py:6-51): Adam with optax's
+  default betas (0.9, 0.999), the gradient's global norm clipped to 5.0
+  as optax clips it (``clip_grad_norm_optax_``), the MSE + continuity +
+  variance loss;
+* ``EmbedSystem`` (gesture_autoencoder with pose 27: mode pose;
+  joint_embedding: mode random; train_joint_embed.py:5-62): Adam (0.5,
+  0.999), the per-sample mean L1 summed over the batch;
+* ``MotionAESystem`` (gesture_autoencoder with pose 126, the TED
+  Expressive FGD embedder; train_feature_extractor_expressive.py:113-148):
+  Adam (0.9, 0.999) at ``lr_for_epoch`` (StepLR 30 / 0.1), L1 of the poses
+  and of their differences plus the weighted sum of bone cosines.
+
 Losses are taken in float32 whatever the compute dtype.  After a step,
 every parameter's ``.grad`` holds that step's gradient (None where the
-step gave it none).  Randomness (speaker z, dropout, the speaker
-permutation) comes from the ``torch.Generator`` the caller passes.
+step gave it none; seq2seq's clipped).  Randomness (speaker z, dropout,
+the speaker permutation, the variational noise, the random mode's coin)
+comes from the ``torch.Generator`` the caller passes.  Every Adam has eps
+1e-8.
 """
 
 from __future__ import annotations
@@ -34,28 +52,41 @@ import torch.nn as nn
 from ha2g_torch.config import Config
 from ha2g_torch.device import resolve_device
 from ha2g_torch.models.common import init_parameters_, keep_running_stats
+from ha2g_torch.models.embedding_net import EmbeddingNet
 from ha2g_torch.models.hierarchy import ConvDiscriminator
+from ha2g_torch.models.motion_ae import MotionAE
 from ha2g_torch.models.multimodal_context import PoseGenerator
+from ha2g_torch.models.seq2seq import Seq2SeqNet
 from ha2g_torch.models import speech2gesture as s2g
 from ha2g_torch.ops.precision import resolve_dtype
 from ha2g_torch.train import losses
 
 
+def _place(system: nn.Module, cfg: Config, device, generator) -> None:
+    """Initialise ``system``'s parameters from ``generator`` (a CPU
+    generator; seed 0 when None), move it to ``device`` (CUDA unless
+    ``device="cpu"``) and set its ``device`` and compute ``dtype``."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_parameters_(system, generator)
+    system.to(device)
+    system.device = device
+    system.dtype = resolve_dtype(cfg.compute_dtype)
+
+
+def _on_device(system, batch: dict, keys) -> tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(batch[k]).to(system.device) for k in keys)
+
+
 class _GanSystem(nn.Module):
-    """Shared set-up: initialise ``gen`` and ``dis`` from ``generator`` (a
-    CPU generator; seed 0 when None), move them to ``device`` (CUDA unless
-    ``device="cpu"``), and build both optimisers."""
+    """Shared set-up: ``_place`` ``gen`` and ``dis`` and build both
+    optimisers."""
 
     batch_keys: tuple[str, ...] = ()
 
     def _setup(self, cfg: Config, device, generator):
-        device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        init_parameters_(self, generator)
-        self.to(device)
-        self.device = device
-        self.dtype = resolve_dtype(cfg.compute_dtype)
+        _place(self, cfg, device, generator)
         self.g_opt = torch.optim.Adam(self.gen.parameters(),
                                       lr=cfg.learning_rate,
                                       betas=(0.5, 0.999), eps=1e-8)
@@ -65,8 +96,7 @@ class _GanSystem(nn.Module):
             betas=(0.5, 0.999), eps=1e-8)
 
     def _batch(self, batch: dict, keys=None) -> tuple[torch.Tensor, ...]:
-        return tuple(torch.as_tensor(batch[k]).to(self.device)
-                     for k in keys or self.batch_keys)
+        return _on_device(self, batch, keys or self.batch_keys)
 
     def _d_step(self, d_loss: torch.Tensor) -> None:
         self.d_opt.zero_grad(set_to_none=True)
@@ -260,3 +290,188 @@ class S2GSystem(_GanSystem):
         finally:
             self.train(was_training)
         return out, losses.l1_loss(out, target)
+
+
+# ---------------------------------------------------------------------------
+# single-optimiser systems
+# ---------------------------------------------------------------------------
+
+def clip_grad_norm_optax_(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
+    g / ||g|| * max_norm when ||g|| >= max_norm, else g unchanged (torch's
+    ``clip_grad_norm_`` divides by ||g|| + 1e-6).  -> ||g||, on the
+    device (no host read)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+class _SingleSystem:
+    """What the single-optimiser systems share: the model is the system
+    itself, with one Adam ``opt``."""
+
+    batch_keys: tuple[str, ...] = ()
+
+    def _setup(self, cfg: Config, device, generator, betas) -> None:
+        self.cfg = cfg
+        _place(self, cfg, device, generator)
+        self.opt = torch.optim.Adam(self.parameters(), lr=cfg.learning_rate,
+                                    betas=betas, eps=1e-8)
+
+    def _step(self, loss: torch.Tensor) -> None:
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict, generator: torch.Generator):
+        """Eval mode: -> (output (B, T, pose_dim) float32, mean L1 to the
+        target)."""
+        target = _on_device(self, batch, ("target",))[0]
+        was_training = self.training
+        self.eval()
+        try:
+            out = self._forward(batch, generator)
+        finally:
+            self.train(was_training)
+        return out, losses.l1_loss(out, target)
+
+
+class Seq2SeqSystem(_SingleSystem, Seq2SeqNet):
+    """seq2seq: the text-to-gesture ``Seq2SeqNet`` (no speaker input, as in
+    the JAX package, though the batch ships ``vids`` as its batch keys
+    say), Adam (0.9, 0.999) after optax's global-norm clip at 5.0."""
+
+    batch_keys = ("word_seq", "word_lengths", "target", "vids")
+    max_grad_norm = 5.0
+
+    def __init__(self, cfg: Config, n_words: int, n_speakers: int = 0,
+                 device=None, generator: torch.Generator | None = None):
+        Seq2SeqNet.__init__(
+            self, pose_dim=cfg.pose_dim, n_frames=cfg.n_poses,
+            n_words=n_words, word_embed_dim=cfg.wordembed_dim,
+            hidden_size=cfg.hidden_size, n_layers=cfg.n_layers,
+            dropout=cfg.dropout_prob, n_pre_poses=cfg.n_pre_poses)
+        self._setup(cfg, device, generator, (0.9, 0.999))
+
+    def _forward(self, batch, generator):
+        words, lengths, target = _on_device(
+            self, batch, ("word_seq", "word_lengths", "target"))
+        return self(words, lengths, target, self.dtype, generator)
+
+    def custom_loss(self, out, target) -> torch.Tensor:
+        """MSE + continuity + variance bonus (train_seq2seq.py:6-33); the
+        variance term is the norm over *time* of each (sample, feature)."""
+        cfg = self.cfg
+        n_el = out.numel()
+        mse = torch.mean((out - target) ** 2) * cfg.loss_regression_weight
+        cont = torch.sum(torch.abs(out[:, 1:] - out[:, :-1])) / n_el \
+            * cfg.loss_kld_weight
+        var = -torch.sum(torch.linalg.vector_norm(out, dim=1)) / n_el \
+            * cfg.loss_reg_weight
+        return mse + cont + var
+
+    def train_step(self, batch: dict, generator: torch.Generator) -> dict:
+        """One step on ``batch`` {word_seq (B, S) padded SOS..EOS tokens,
+        word_lengths (B,), target (B, T, pose_dim) (its first n_pre frames
+        teacher-force the decoder), vids}; -> {loss}."""
+        target = _on_device(self, batch, ("target",))[0]
+        self.train()
+        loss = self.custom_loss(self._forward(batch, generator), target)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_grad_norm_optax_(self.parameters(), self.max_grad_norm)
+        self.opt.step()
+        return {"loss": loss.detach()}
+
+
+class EmbedSystem(_SingleSystem, EmbeddingNet):
+    """gesture_autoencoder at pose 27 (mode pose: the TED Gesture FGD
+    embedder) and joint_embedding (mode random: one coin a step picks the
+    speech or the pose latent, kept in ``last_coin``); Adam (0.5, 0.999).
+    Pose mode reads only the target."""
+
+    def __init__(self, cfg: Config, n_words: int = 0, n_speakers: int = 0,
+                 device=None, generator: torch.Generator | None = None):
+        mode = "pose" if cfg.model == "gesture_autoencoder" else "random"
+        EmbeddingNet.__init__(self, cfg.pose_dim, cfg.n_poses, mode,
+                              n_words, cfg.wordembed_dim, cfg.n_pre_poses)
+        self.batch_keys = ("target", "vids") if mode == "pose" \
+            else ("text", "audio", "target", "vids")
+        self._setup(cfg, device, generator, (0.5, 0.999))
+
+    def _forward(self, batch, generator):
+        target = _on_device(self, batch, ("target",))[0]
+        pre = target[:, :self.cfg.n_pre_poses]
+        text = audio = None
+        if self.mode != "pose":
+            text, audio = _on_device(self, batch, ("text", "audio"))
+        return self(text, audio, pre, target, dtype=self.dtype,
+                    generator=generator)[-1]
+
+    def train_step(self, batch: dict, generator: torch.Generator) -> dict:
+        """One step; -> {loss}: the per-sample mean L1 summed over the
+        batch, plus the difference term with ``embed_pose_diff_loss``
+        (train_feature_extractor.py:68-71)."""
+        target = _on_device(self, batch, ("target",))[0]
+        self.train()
+        recon = self._forward(batch, generator)
+        per = torch.mean(torch.abs(recon - target), dim=(1, 2))
+        if self.cfg.embed_pose_diff_loss:
+            per = per + torch.mean(torch.abs(
+                (recon[:, 1:] - recon[:, :-1])
+                - (target[:, 1:] - target[:, :-1])), dim=(1, 2))
+        loss = torch.sum(per)
+        self._step(loss)
+        return {"loss": loss.detach()}
+
+
+class MotionAESystem(_SingleSystem, MotionAE):
+    """gesture_autoencoder at pose 126: the TED Expressive FGD embedder,
+    Adam (0.9, 0.999) whose learning rate the trainer sets each epoch
+    (``lr_for_epoch``: StepLR 30 / 0.1, train_feature_extractor_expressive
+    .py:103)."""
+
+    batch_keys = ("target", "vids")
+
+    def __init__(self, cfg: Config, n_words: int = 0, n_speakers: int = 0,
+                 device=None, generator: torch.Generator | None = None):
+        MotionAE.__init__(self, cfg.pose_dim, cfg.latent_dim)
+        self._setup(cfg, device, generator, (0.9, 0.999))
+
+    def lr_for_epoch(self, epoch: int) -> float:
+        return self.cfg.learning_rate * (0.1 ** (epoch // 30))
+
+    def _forward(self, batch, generator):
+        target = _on_device(self, batch, ("target",))[0]
+        return self(target, self.dtype)[0]
+
+    def train_step(self, batch: dict, generator: torch.Generator,
+                   lr: float | None = None) -> dict:
+        """One step at learning rate ``lr`` (the config's when None); ->
+        {loss, l1}: the summed per-sample L1 of the poses and of their
+        differences, plus ``cos_loss_weight`` times the plain sum over
+        (B, T, bones) of 1 - cos(recon, target)
+        (train_feature_extractor_expressive.py:130-143)."""
+        target = _on_device(self, batch, ("target",))[0]
+        if lr is not None:
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+        self.train()
+        recon = self._forward(batch, generator)
+        l1 = torch.sum(torch.mean(torch.abs(recon - target), dim=(1, 2)))
+        l1 = l1 + torch.sum(torch.mean(torch.abs(
+            (recon[:, 1:] - recon[:, :-1]) - (target[:, 1:] - target[:, :-1])),
+            dim=(1, 2)))
+        rr = recon.reshape(*recon.shape[:2], -1, 3)
+        tt = target.reshape(*target.shape[:2], -1, 3)
+        norms = torch.linalg.vector_norm(rr, dim=-1) \
+            * torch.linalg.vector_norm(tt, dim=-1)
+        cos = 1.0 - torch.sum(rr * tt, dim=-1) / torch.clamp_min(norms, 1e-8)
+        loss = l1 + torch.sum(cos) * self.cfg.cos_loss_weight
+        self._step(loss)
+        return {"loss": loss.detach(), "l1": l1.detach()}

@@ -11,16 +11,20 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   and ``checkpoint_final`` at the end; every evaluation is a row of
   ``history.jsonl``.
 * GAN steps run when ``epoch > loss_warmup`` for the hierarchy and
-  multimodal_context; speech2gesture's step has no warm-up.  The train
+  multimodal_context; the other families' steps have no warm-up, and the
+  TED Expressive FGD embedder (gesture_autoencoder at pose 126) takes the
+  epoch's learning rate (``MotionAESystem.lr_for_epoch``).  The train
   loader ships the fields the system reads (its ``batch_keys``).
+* gesture_autoencoder evaluates its reconstruction loss only: no MAJE,
+  accel, BC or FGD (JAX loop.py:186), so it selects by the loss.
 * The train steps' metrics are summed on the device and read once at the
   end of an epoch, so no step waits on a host read.
 * One ``torch.Generator`` on the device, seeded from ``random_seed``,
   drives the train steps' randomness.
 
-Ported families: hierarchy, multimodal_context and speech2gesture; the
-others raise (ROADMAP A.5).  A single device (multi-device is ROADMAP
-A.6).
+Every family of the JAX package: hierarchy, multimodal_context,
+speech2gesture, seq2seq, joint_embedding and gesture_autoencoder.  A
+single device (multi-device is ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -41,11 +45,10 @@ from ha2g_torch.data.vocab import Vocab
 from ha2g_torch.device import resolve_device
 from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator
 from ha2g_torch.eval.metrics import beat_consistency, maje_and_accel
+from ha2g_torch.models.seq2seq import MaskedBiGRUEncoder
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.utils.average_meter import AverageMeter
 
-# the families not ported yet (ROADMAP A.5)
-UNPORTED_FAMILIES = ("seq2seq", "joint_embedding", "gesture_autoencoder")
 # the families whose train step takes gan_on (epoch > loss_warmup)
 GAN_GATED = ("hierarchy", "multimodal_context")
 
@@ -54,28 +57,29 @@ def build_system(cfg: Config, n_words: int, n_speakers: int,
                  word_embeddings=None, device=None,
                  generator: Optional[torch.Generator] = None):
     """The training system of ``cfg.model`` (reference init_model,
-    train.py:50-88).  A word-embedding table, when given, initialises every
-    text encoder's embedding, as in the JAX package."""
-    if cfg.model in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model {cfg.model!r}: the port has the hierarchy, "
-            "multimodal_context and speech2gesture; seq2seq, "
-            "joint_embedding, gesture_autoencoder and the embedders' "
-            "training systems wait for ROADMAP A.5")
+    train.py:50-88; gesture_autoencoder at pose 126 is the TED Expressive
+    FGD embedder's ``MotionAESystem``).  A word-embedding table, when
+    given, initialises every text encoder's embedding (the TCNs' and the
+    seq2seq encoder's), as in the JAX package."""
+    from ha2g_torch.train import baselines
     if cfg.model == "hierarchy":
         from ha2g_torch.train.hierarchy import HierarchySystem as cls
-    elif cfg.model == "multimodal_context":
-        from ha2g_torch.train.baselines import MultimodalGanSystem as cls
-    elif cfg.model == "speech2gesture":
-        from ha2g_torch.train.baselines import S2GSystem as cls
+    elif cfg.model == "gesture_autoencoder" and cfg.pose_dim == 126:
+        cls = baselines.MotionAESystem
     else:
-        raise ValueError(f"unknown model {cfg.model!r}")
+        cls = {"multimodal_context": baselines.MultimodalGanSystem,
+               "speech2gesture": baselines.S2GSystem,
+               "seq2seq": baselines.Seq2SeqSystem,
+               "joint_embedding": baselines.EmbedSystem,
+               "gesture_autoencoder": baselines.EmbedSystem}.get(cfg.model)
+        if cls is None:
+            raise ValueError(f"unknown model {cfg.model!r}")
     system = cls(cfg, n_words, n_speakers, device=device, generator=generator)
     if word_embeddings is not None:
         table = torch.as_tensor(np.asarray(word_embeddings, np.float32))
         with torch.no_grad():
             for m in system.modules():
-                if isinstance(m, TextEncoderTCN):
+                if isinstance(m, (TextEncoderTCN, MaskedBiGRUEncoder)):
                     m.embedding.weight.copy_(table)
     return system
 
@@ -117,10 +121,12 @@ class Trainer:
     def evaluate(self, epoch: int = 0) -> dict:
         """Validation metrics of the current parameters: loss (mean L1),
         joint_mae, accel, BC (with beat consistency on), and frechet,
-        feat_dist, diversity (with an evaluator)."""
+        feat_dist, diversity (with an evaluator).  gesture_autoencoder
+        computes the loss alone (joint_mae and accel stay 0)."""
         cfg = self.cfg
         meters = {k: AverageMeter(k) for k in ("loss", "joint_mae", "accel",
                                                "bc")}
+        poses = cfg.model != "gesture_autoencoder"
         if self.evaluator:
             self.evaluator.reset()
         mean_vec = cfg.mean_dir_vec_array
@@ -140,6 +146,9 @@ class Trainer:
             out, loss = self.system.eval_step(b, gen)
             B = b["target"].shape[0]
             meters["loss"].update(float(loss), B)
+            if not poses:
+                times["eval_step"] += time.perf_counter() - t
+                continue
             out_np = out.cpu().numpy()
             times["eval_step"] += time.perf_counter() - t
             if self.evaluator:
@@ -201,15 +210,20 @@ class Trainer:
 
     def _train_step(self, batch: dict, epoch: int) -> dict:
         """The GAN-gated step of the hierarchy and multimodal_context
-        (GAN phase when epoch > loss_warmup), the plain one of
-        speech2gesture (JAX loop.py:119-136)."""
-        if self.cfg.model in GAN_GATED:
+        (GAN phase when epoch > loss_warmup), the TED Expressive embedder's
+        at the epoch's learning rate, the plain one of the others (JAX
+        loop.py:119-136, 323-326)."""
+        cfg = self.cfg
+        if cfg.model in GAN_GATED:
             return self.system.train_step(
-                batch, epoch > self.cfg.loss_warmup, self.generator)
+                batch, epoch > cfg.loss_warmup, self.generator)
+        if cfg.model == "gesture_autoencoder" and cfg.pose_dim == 126:
+            return self.system.train_step(
+                batch, self.generator, lr=self.system.lr_for_epoch(epoch))
         return self.system.train_step(batch, self.generator)
 
     def resume(self, path) -> int:
-        """Restore parameters, batch-norm statistics, both optimisers and
+        """Restore parameters, batch-norm statistics, the optimisers and
         the step count from a checkpoint; -> the epoch to start at (the
         saved ``extra.epoch`` + 1)."""
         self.step = load_state(path, self.system)

@@ -8,8 +8,8 @@ directory written by ``ha2g_tpu.checkpoint`` read back bit for bit, and
 ``GestureService`` request and one HTTP request each, equal to the direct
 ``generate`` on the same padded batch; a speech2gesture live stream
 against ``generate`` (1e-4, the hierarchy stream's bound against its
-batch path); a multimodal stream refused; and the families still to port
-raising.
+batch path); a multimodal stream refused; and the families ported after
+these two building, their generic checkpoints going out and back.
 """
 
 import ast
@@ -246,9 +246,24 @@ def test_stream_against_generate_or_refused(service):
 @pytest.mark.parametrize("model", ("seq2seq", "joint_embedding",
                                    "gesture_autoencoder"))
 def test_families_left_raise_naming_a5(model, tmp_path):
-    cfg = Config(model=model, hidden_size=8, n_layers=1)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_system(cfg, 8, 2, device="cpu")
+    """The families that once raised here (ROADMAP A.5) are ported: each
+    builds with the JAX package's batch keys; seq2seq's and
+    joint_embedding's generic reference checkpoint goes out and back
+    tensor for tensor, and an embedder's, which is not a generic one,
+    raises ValueError."""
     from ha2g_torch import reference_ckpt as rc
-    with pytest.raises(NotImplementedError, match="A.5"):
-        rc.import_generic_checkpoint({}, cfg)
+    cfg = Config(model=model, hidden_size=8, n_layers=1, wordembed_dim=8)
+    system = build_system(cfg, 8, 2, device="cpu")
+    assert system.batch_keys == {
+        "seq2seq": ("word_seq", "word_lengths", "target", "vids"),
+        "joint_embedding": ("text", "audio", "target", "vids"),
+        "gesture_autoencoder": ("target", "vids")}[model]
+    state = system.state_dict()
+    if model == "gesture_autoencoder":
+        with pytest.raises(ValueError, match="no generic importer"):
+            rc.import_generic_checkpoint({"gen_dict": state}, cfg)
+        return
+    ref = rc.export_generic_checkpoint(state, cfg)
+    assert set(ref["gen_dict"]) == set(state) and "dis_dict" not in ref
+    back = rc.import_generic_checkpoint(ref, cfg)
+    assert all(torch.equal(back[k], v) for k, v in state.items())

@@ -289,13 +289,29 @@ def test_a_real_reference_pickle_loads(tmp_path):
 
 
 def test_importing_another_family_raises(tmp_path):
+    """A seq2seq reference .bin imports (ROADMAP A.5 is ported); a .bin of
+    a family with no generation checkpoint (an FGD embedder's model)
+    raises ValueError."""
     cfg, _, state = jax_hierarchy("ted_gesture", 27)
     ref = et.export_hierarchy_checkpoint(state, cfg)
-    ref["args"].model = "seq2seq"
+    ref["args"].model = "gesture_autoencoder"
     torch.save(ref, tmp_path / "mm.bin")
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="no generic importer"):
         _quiet(["import-checkpoint", str(tmp_path / "mm.bin"),
                 str(tmp_path / "out"), "--device", "cpu"])
+    from ha2g_torch.train.loop import build_system
+    s2s_cfg = port_config("ted_gesture", 27).replace(model="seq2seq",
+                                                      wordembed_dim=8)
+    system = build_system(s2s_cfg, N_WORDS, N_SPK, device="cpu")
+    _, (lang, speaker) = vocabs()
+    torch.save(rc.export_generic_checkpoint(system.state_dict(), s2s_cfg,
+                                            lang, speaker),
+               tmp_path / "s2s.bin")
+    assert _quiet(["import-checkpoint", str(tmp_path / "s2s.bin"),
+                   str(tmp_path / "s2s"), "--device", "cpu"]) == 0
+    got = ckpt.read_state(tmp_path / "s2s")["model"]
+    assert all(torch.equal(got[k], v)
+               for k, v in system.state_dict().items())
 
 
 @pytest.mark.parametrize("dataset,pose_dim", DATASETS)

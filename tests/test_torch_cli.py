@@ -3,7 +3,7 @@ width: ``train`` for two epochs on stored synthetic clips with a seeded
 FGD embedder, ``--resume``, ``eval --bc``, ``synthesize`` (with
 ``--fade_out``), ``from-text --wav``, the round trip of a checkpoint and
 of the embedder through ``export-checkpoint`` / ``import-checkpoint`` /
-``import-evalnet``; and the families that are not ported yet."""
+``import-evalnet``; and every family's system building."""
 
 import ast
 import contextlib
@@ -182,17 +182,15 @@ def test_eval_and_synthesize_read_the_checkpoint(run, tmp_path):
                                    "speech2gesture", "joint_embedding",
                                    "gesture_autoencoder"))
 def test_build_system_raises_for_a_baseline_family(model):
-    """The families still to port raise, naming A.5; the two GAN baselines
-    build, with the JAX package's batch keys."""
+    """No baseline family raises any more (ROADMAP A.5 is ported): each
+    builds, with the JAX package's batch keys."""
     ported = {"multimodal_context": ("text", "audio", "target", "vids"),
-              "speech2gesture": ("spec", "target", "vids")}
-    cfg = Config(model=model, hidden_size=8, n_layers=1)
-    if model in ported:
-        assert build_system(cfg, 8, 2, device="cpu").batch_keys == \
-            ported[model]
-        return
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_system(cfg, 8, 2, device="cpu")
+              "speech2gesture": ("spec", "target", "vids"),
+              "seq2seq": ("word_seq", "word_lengths", "target", "vids"),
+              "joint_embedding": ("text", "audio", "target", "vids"),
+              "gesture_autoencoder": ("target", "vids")}
+    cfg = Config(model=model, hidden_size=8, n_layers=1, wordembed_dim=8)
+    assert build_system(cfg, 8, 2, device="cpu").batch_keys == ported[model]
 
 
 def _quiet(argv):

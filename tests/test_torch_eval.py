@@ -122,8 +122,18 @@ def test_embedder_matches_jax(pose_dim):
 
 
 def test_embedding_net_other_modes_wait():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        EmbeddingNet(27, T, mode="speech")
+    """The joint-embedding modes no longer wait (ROADMAP A.5 is ported):
+    mode "speech" builds the context encoder and the GRU decoder beside
+    the pose encoder, the pose mode keeps the embedder's layout, and an
+    unknown mode raises."""
+    net = EmbeddingNet(27, T, mode="speech", n_words=8, word_embed_dim=8)
+    keys = {k.split(".")[0] for k in net.state_dict()}
+    assert keys == {"context_encoder", "pose_encoder", "decoder"}
+    assert any(k.startswith("decoder.gru.") for k in net.state_dict())
+    assert {k.split(".")[0] for k in EmbeddingNet(27, T).state_dict()} == \
+        {"pose_encoder", "decoder"}
+    with pytest.raises(ValueError, match="mode"):
+        EmbeddingNet(27, T, mode="both")
 
 
 # ---------------------------------------------------------------------------
