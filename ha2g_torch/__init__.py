@@ -9,7 +9,9 @@ bidirectional GRU whose recurrence is the hand-written CUDA kernel in
 Training runs the GAN step (``train/hierarchy.py``, the contrastive loss
 on the kernels of ``csrc/contrastive.cu``) under the epoch ``Trainer``
 (``train/loop.py``: FGD evaluation, checkpoints, resume), driven by
-``python -m ha2g_torch.cli train|eval|synthesize``.
+``python -m ha2g_torch.cli train|eval|synthesize``; under ``torchrun`` on
+several processes, data-parallel or FSDP-sharded, as one global batch
+(``parallel/mesh.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without that request they raise.

@@ -14,6 +14,11 @@ A checkpoint is a directory:
                 package's schema;
   word_vectors.npy   the word-embedding table, when there is one.
 
+A run on several processes writes the same files: the trainer gathers an
+FSDP-sharded state whole on every rank and rank 0 alone calls
+``save_checkpoint`` (``train/loop.py``), so a checkpoint resumes on any
+number of processes.
+
 ``load_state`` reads ``state.pt`` with ``weights_only=True`` into a freshly
 built system with strict keys, and restores parameters, batch-norm
 statistics and Adam moments exactly.  It also reads a checkpoint directory

@@ -2,6 +2,8 @@
 
   python -m ha2g_torch.cli train --config configs_expressive/hierarchy.yaml
       [--field value ...] [--resume CHECKPOINT] [--device cuda|cpu]
+  torchrun --standalone --nproc_per_node N -m ha2g_torch.cli train
+      --config ... [--fsdp_devices M] [--device cuda|cpu]
   python -m ha2g_torch.cli eval CHECKPOINT [--clips DIR] [--bc]
   python -m ha2g_torch.cli synthesize CHECKPOINT [--clips DIR] [--n N]
       [--out FILE] [--fused] [--fade_out]
@@ -156,20 +158,34 @@ def make_evaluator(cfg, device):
 
 
 def cmd_train(argv: list[str]) -> int:
+    """Train; under torchrun (``WORLD_SIZE`` > 1) as one rank of the mesh
+    over every rank, ``--fsdp_devices`` of them sharding each parameter,
+    on ``cuda:LOCAL_RANK`` (NCCL) or the CPU (gloo), logging to the file
+    on rank 0 only."""
+    import torch.distributed as dist
+
     from ha2g_torch.config import parse_cli
+    from ha2g_torch.parallel.mesh import init_process_group, rank_device
     from ha2g_torch.train.loop import Trainer
 
     device, argv = _pop(argv, "--device", "cuda")
     resume, argv = _pop(argv, "--resume")
-    device = _device(device)
+    device = _device(rank_device(device))
     cfg = parse_cli(argv)
-    set_logger(cfg.model_save_path, cfg.name)
+    own_group = not dist.is_initialized() and init_process_group(device)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        logging.basicConfig(level=logging.WARNING, force=True,
+                            format="%(asctime)s: %(message)s")
+    else:
+        set_logger(cfg.model_save_path, cfg.name)
     logging.info(f"config: {cfg}")
     cfg, lang, speaker, train_s, val_s = _prepare(cfg)
     trainer = Trainer(cfg, train_s, val_s, lang, speaker,
                       make_evaluator(cfg, device), device=device)
     trainer.fit(resume_from=resume)
     logging.info(f"best: {trainer.best_values}")
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -81,9 +81,22 @@ class Config:
     save_optimizer_state: bool = True
 
     compute_dtype: str = "float32"  # float32 | bfloat16
+    # the mesh of a multi-process run (torchrun; parallel/mesh.py): its
+    # FSDP size, over which parameters and Adam moments shard (1 = pure
+    # DP), and its data-parallel size, kept so the JAX package's configs
+    # load: 0 or the world size over fsdp_devices (the mesh spans every
+    # rank), which is what the port takes in either case
+    dp_devices: int = 0
+    fsdp_devices: int = 1
     # reproduce the reference's off-by-one expressive pre-seq head fill, for
     # checkpoints trained by the reference code (see SkeletonSpec)
     ref_routing_compat: bool = False
+
+    def __post_init__(self):
+        if self.dp_devices < 0 or self.fsdp_devices < 1:
+            raise ValueError(f"dp_devices {self.dp_devices} (0 = the world "
+                             f"size over fsdp_devices) and fsdp_devices "
+                             f"{self.fsdp_devices} (1 = pure data parallel)")
 
     @property
     def skeleton(self) -> SkeletonSpec:

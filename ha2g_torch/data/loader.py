@@ -13,6 +13,10 @@ that event before it refills the buffer (a ring of ``PINNED_SETS``
 buffer sets).  Without the wait the worker could overwrite a batch the
 card is still reading.  With a CPU device batches come as CPU tensors,
 and without a device as numpy arrays.
+
+Under a mesh, ``part=(r, W)`` makes the loader rank r's: the global batch
+order is the single loader's (same seed, same ``drop_last``), and the rank
+gathers, pins and copies only its own contiguous rows of each batch.
 """
 
 from __future__ import annotations
@@ -36,12 +40,20 @@ class BatchLoader:
     def __init__(self, samples: WindowedSamples, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, keys=None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 part: tuple[int, int] = (0, 1)):
         # keys: only the fields the system reads (the raw 16 kHz audio is
         # most of a batch's bytes, and the hierarchy never reads it)
         self.keys = tuple(keys) if keys else BATCH_KEYS
         self.s = samples
         self.batch_size = batch_size
+        # part (r, W): rank r of W takes the rows [r b, (r + 1) b), b =
+        # batch_size / W, of every global batch
+        self.part_index, self.parts = part
+        if batch_size % self.parts:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{self.parts} ranks")
+        self.rows = batch_size // self.parts
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
@@ -56,8 +68,9 @@ class BatchLoader:
             -(-n // self.batch_size)
 
     def batch_bytes(self) -> int:
-        """Bytes of one full batch of the loader's keys."""
-        return sum(getattr(self.s, k)[:1].nbytes * self.batch_size
+        """Bytes of one full batch (this rank's rows) of the loader's
+        keys."""
+        return sum(getattr(self.s, k)[:1].nbytes * self.rows
                    for k in self.keys)
 
     def _indices(self) -> Iterator[np.ndarray]:
@@ -65,7 +78,11 @@ class BatchLoader:
         idx = self.rng.permutation(n) if self.shuffle else np.arange(n)
         stop = n - n % self.batch_size if self.drop_last else n
         for i in range(0, stop, self.batch_size):
-            yield idx[i:i + self.batch_size]
+            sel = idx[i:i + self.batch_size]
+            if self.parts > 1:
+                # a last partial batch (drop_last off) splits as evenly
+                sel = np.array_split(sel, self.parts)[self.part_index]
+            yield sel
 
     def _gather(self, sel: np.ndarray) -> dict[str, np.ndarray]:
         return {k: getattr(self.s, k)[sel] for k in self.keys}
@@ -84,7 +101,7 @@ class BatchLoader:
     def _buffers(self, slot: int) -> dict[str, torch.Tensor]:
         while len(self._pinned) <= slot:
             self._pinned.append({
-                k: torch.empty((self.batch_size,) + getattr(self.s, k)
+                k: torch.empty((self.rows,) + getattr(self.s, k)
                                .shape[1:], dtype=torch.from_numpy(
                                    getattr(self.s, k)[:1]).dtype,
                                pin_memory=True) for k in self.keys})

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ha2g_torch.parallel.mesh import current_mesh, draw_rows
+
 
 class Linear(nn.Linear):
     def forward(self, x, dtype: torch.dtype = torch.float32):
@@ -65,10 +67,18 @@ class BatchNorm(nn.BatchNorm2d):
     back to the compute dtype, eps 1e-5.
 
     Eval mode uses the running statistics.  Training mode is the JAX
-    package's flax BatchNorm (momentum 0.9, torch's 0.1): statistics over
-    the whole batch, and the running variance updated with the *biased*
-    batch variance that also normalises (torch's own update would take the
-    unbiased one), so the running statistics are updated here by hand.
+    package's flax BatchNorm (momentum 0.9, torch's 0.1) with its sync-BN:
+    statistics over the whole global batch.  In one process (or a mesh of
+    one rank) that is the batch at hand, through torch's fused
+    ``F.batch_norm``.  Under a mesh of several ranks they are taken in two
+    passes, the mean from the sum and then the biased variance from the
+    centred squares, each sum a differentiable all-reduce over the ranks,
+    so every rank normalises with the global batch's statistics.  This
+    holds only inside ``Mesh.part`` (the ``distributed_step`` around every
+    system's ``train_step``): a forward outside it takes this rank's own
+    statistics.  The running variance is updated with the biased variance
+    (torch's own update would take the unbiased one), so the running
+    statistics are updated here by hand, alike on every rank.
     ``update_stats`` False (``keep_running_stats``) normalises with the
     batch's statistics all the same and leaves the running ones alone, as
     the JAX package's auxiliary train-mode forwards do.
@@ -82,17 +92,32 @@ class BatchNorm(nn.BatchNorm2d):
             out = F.batch_norm(xf, self.running_mean, self.running_var,
                                self.weight, self.bias, False, 0.0, self.eps)
             return out.to(dtype)
-        out = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
-        if not self.update_stats:
+        dims = [0, *range(2, xf.dim())]
+        mesh = current_mesh()
+        if mesh is None or mesh.world == 1:
+            out = F.batch_norm(xf, None, None, self.weight, self.bias, True,
+                               0.0, self.eps)
+            if self.update_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
+                    self._update_running(mean, var)
             return out.to(dtype)
-        with torch.no_grad():
-            dims = [0, *range(2, xf.dim())]
-            var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(m * var)
+        shape = [1, -1] + [1] * (xf.dim() - 2)
+        n = xf.numel() // xf.shape[1] * mesh.world
+        mean = mesh.all_reduce(xf.sum(dims)) / n
+        centred = xf - mean.view(shape)
+        var = mesh.all_reduce((centred * centred).sum(dims)) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = centred * scale.view(shape) + self.bias.view(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                self._update_running(mean, var)
         return out.to(dtype)
+
+    def _update_running(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(m * mean)
+        self.running_var.mul_(1.0 - m).add_(m * var)
 
 
 @contextlib.contextmanager
@@ -113,14 +138,16 @@ def keep_running_stats(module: nn.Module):
 def dropout(x, p: float, training: bool, generator: torch.Generator | None):
     """flax-style inverted dropout whose keep mask (probability 1 - p) is
     drawn from ``generator`` on its own device and moved to x's, so a CPU
-    generator gives the same mask whatever device the model runs on.
-    A no-op unless training with p > 0; then a generator is required."""
+    generator gives the same mask whatever device the model runs on; x's
+    axis 0 is the batch, and a part of a global batch keeps its rows of the
+    global batch's mask (``parallel.mesh.draw_rows``).  A no-op unless
+    training with p > 0; then a generator is required."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
-    keep = torch.rand(tuple(x.shape), generator=generator,
-                      device=generator.device) >= p
+    keep = draw_rows(x.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=generator.device)) >= p
     return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
 
 
@@ -131,10 +158,12 @@ def leaky_relu(x, slope: float):
 def reparameterize(mu, logvar, generator: torch.Generator):
     """mu + eps * exp(logvar / 2), eps ~ N(0, I) drawn from ``generator`` on
     its own device and moved to mu's (so a CPU generator gives the same
-    draw whatever device the model runs on)."""
+    draw whatever device the model runs on); a part of a global batch keeps
+    its rows of the global batch's draw."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(tuple(std.shape), generator=generator,
-                      device=generator.device, dtype=torch.float32)
+    eps = draw_rows(std.shape, lambda shape: torch.randn(
+        shape, generator=generator, device=generator.device,
+        dtype=torch.float32))
     return mu + eps.to(device=std.device, dtype=std.dtype) * std
 
 

@@ -13,6 +13,7 @@ from ha2g_torch.models.common import (BatchNorm, Conv1d, Linear, leaky_relu,
 from ha2g_torch.models.resnet_se import ResNetSE
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.ops.gru import GRU
+from ha2g_torch.parallel.mesh import draw_rows
 
 Z_SIZE = 16
 FEAT_SIZE = 32
@@ -87,8 +88,8 @@ class HierarchicalPoseGenerator(nn.Module):
             raise ValueError(f"z_type {self.z_type!r} needs a torch.Generator "
                              "for its noise")
         if self.z_type == "random":
-            z = torch.randn((batch, Z_SIZE), generator=generator,
-                            device=generator.device)
+            z = draw_rows((batch, Z_SIZE), lambda shape: torch.randn(
+                shape, generator=generator, device=generator.device))
             return z.to(vid_indices.device), None, None
         emb = self.speaker_embedding[1](
             self.speaker_embedding[0](vid_indices), dtype)

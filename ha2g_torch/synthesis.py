@@ -35,7 +35,9 @@ them from several threads.
 
 from __future__ import annotations
 
+import copy
 import math
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,6 +51,7 @@ from ha2g_torch.ops.mel import (HOP, N_FFT, batched_log_mel,
                                 batched_log_mel_i16, batched_log_mel_mulaw,
                                 log_mel_abs, pcm_to_float_np)
 from ha2g_torch.ops.precision import resolve_dtype
+from ha2g_torch.parallel.mesh import batch_part
 from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train.cascade import run_cascade
 
@@ -136,6 +139,8 @@ class SlidingWindowSynthesizer:
         self.spec: SkeletonSpec = self.cfg.skeleton
         self.device = system.device
         self.dtype = resolve_dtype(self.cfg.compute_dtype)
+        # run_fused's model replicas by device
+        self._replicas: dict = {}
 
     @staticmethod
     def _generator(generator):
@@ -281,16 +286,19 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         return self._cascade_step(inputs["text_w"], blend, inputs["carry"],
                                   vids, generator)
 
-    def _cascade_step(self, text_w, blend_w, carry, vids, generator):
-        """Level cascade on precomputed blend features for one window."""
+    def _cascade_step(self, text_w, blend_w, carry, vids, generator,
+                      gens=None):
+        """Level cascade on precomputed blend features for one window
+        (``gens``: the level generators, the system's by default)."""
         cfg = self.cfg
         B = text_w.shape[0]
         target = torch.zeros((B, cfg.n_poses, self.spec.pose_dim),
-                             device=self.device)
+                             device=carry.device)
         target[:, :cfg.n_pre_poses] = carry
-        outs, _, _, _, _ = run_cascade(self.system.gens, self.spec, target,
-                                       text_w, blend_w, vids,
-                                       cfg.n_pre_poses, self.dtype, generator)
+        gens = self.system.gens if gens is None else gens
+        outs, _, _, _, _ = run_cascade(gens, self.spec, target, text_w,
+                                       blend_w, vids, cfg.n_pre_poses,
+                                       self.dtype, generator)
         return outs[-1].float()
 
     # ---- fused loop -------------------------------------------------------
@@ -319,14 +327,83 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
                 "S_total": S_total, "pad_to": max(s0_all) + spec_len}
 
     @torch.inference_mode()
-    def run_fused(self, audio: np.ndarray, plan: dict) -> np.ndarray:
+    def run_fused(self, audio: np.ndarray, plan: dict,
+                  devices: Optional[Sequence] = None) -> np.ndarray:
         """Device part of the fused loop: mel front-end, audio encoder over
         all windows at once, then the per-window cascade, carry and
-        cross-fade.  -> (B, total_frames, pose_dim) float32."""
+        cross-fade.  -> (B, total_frames, pose_dim) float32.
+
+        ``devices`` (the JAX package's ``mesh=``): the clip batch splits
+        into len(devices) contiguous equal parts (B must divide), each run
+        on its device's replica of the model (made once, cached; the
+        synthesizer's own modules on its own device) from a thread of its
+        own.  Each part draws the speaker-z noise of the whole batch from a
+        copy of the plan's generator and keeps its rows
+        (``parallel.mesh.batch_part``), so the output equals the
+        single-device call, and the plan's generator ends where that call
+        leaves it.  This is the counterpart of JAX's API, not a way to
+        speed a call up: the path is bound by the host's dispatch, which
+        the threads share under one interpreter lock (two devices on one
+        H100 took 3.9-4.4x one call, PERF.md); its speed over separate
+        cards, or with each part in a process of its own, is not
+        measured."""
+        if not devices:
+            return self._fused_part(audio, plan["text_all"], plan["vids"],
+                                    plan, plan["generator"],
+                                    self._replica(self.device))
+        n, B = len(devices), np.shape(audio)[0]
+        if B % n:
+            raise ValueError(f"a batch of {B} clips does not split over "
+                             f"{n} devices")
+        b = B // n
+        replicas = [self._replica(torch.device(d)) for d in devices]
+        gen = plan["generator"]
+        start = gen.get_state()
+        outs, gens, errors = [None] * n, [None] * n, []
+
+        def part(i):
+            try:
+                g = torch.Generator(gen.device)
+                g.set_state(start)
+                rows = slice(i * b, (i + 1) * b)
+                with torch.inference_mode(), batch_part(i, n):
+                    outs[i] = self._fused_part(
+                        audio[rows], plan["text_all"][:, rows],
+                        plan["vids"][rows], plan, g, replicas[i])
+                gens[i] = g
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                errors.append(e)
+
+        threads = [threading.Thread(target=part, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        gen.set_state(gens[0].get_state())
+        return np.concatenate(outs, axis=0)
+
+    def _replica(self, device: torch.device):
+        """(audio encoder, level generators) on ``device``: the system's
+        own on its device, else a copy made once."""
+        if device == self.device:
+            return self.system.audio, self.system.gens
+        if device not in self._replicas:
+            with torch.inference_mode(False):
+                self._replicas[device] = tuple(
+                    copy.deepcopy(m).to(device).eval()
+                    for m in (self.system.audio, self.system.gens))
+        return self._replicas[device]
+
+    def _fused_part(self, audio, text_all, vids, plan, generator, modules):
+        audio_enc, gens = modules
+        device = next(audio_enc.parameters()).device
         cfg = self.cfg
         n, T = cfg.n_pre_poses, cfg.n_poses
         W, spec_len = plan["num_sub"], plan["spec_len"]
-        full_spec = _mel_any(audio, self.device)
+        full_spec = _mel_any(audio, device)
         if full_spec.shape[2] != plan["S_total"]:
             raise ValueError(f"audio gives {full_spec.shape[2]} mel frames, "
                              f"the plan expects {plan['S_total']}")
@@ -334,18 +411,18 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
             full_spec = F.pad(full_spec, (0, plan["pad_to"] - plan["S_total"]),
                               mode="replicate")
         B = full_spec.shape[0]
-        vids = plan["vids"]
+        vids, text_all = vids.to(device), text_all.to(device)
         spec_all = torch.stack([full_spec[:, :, s0:s0 + spec_len]
                                 for s0 in plan["s0_all"]])   # (W, B, 128, S)
-        blend = self.system.audio(spec_all.flatten(0, 1), vids.repeat(W),
-                                  self.dtype)[-1]            # (L, W*B, T, 32)
+        blend = audio_enc(spec_all.flatten(0, 1), vids.repeat(W),
+                          self.dtype)[-1]                    # (L, W*B, T, 32)
         blend_all = blend.unflatten(1, (W, B)).transpose(0, 1)  # (W, L, B, ..)
 
         pieces = []
-        tail = torch.zeros((B, n, self.spec.pose_dim), device=self.device)
+        tail = torch.zeros((B, n, self.spec.pose_dim), device=device)
         for w in range(W):
-            out = self._cascade_step(plan["text_all"][w], blend_all[w], tail,
-                                     vids, plan["generator"])
+            out = self._cascade_step(text_all[w], blend_all[w], tail, vids,
+                                     generator, gens)
             head = out[:, :n] if w == 0 else _cross_fade(tail, out[:, :n])
             tail = out[:, -n:]
             # windows 0..W-2 keep their first T-n frames, the last all T
@@ -356,13 +433,13 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
     @torch.inference_mode()
     def generate_fused(self, audio: np.ndarray, words_per_clip, lang: Vocab,
                        vids: np.ndarray,
-                       generator: Optional[torch.Generator] = None
-                       ) -> np.ndarray:
+                       generator: Optional[torch.Generator] = None,
+                       devices: Optional[Sequence] = None) -> np.ndarray:
         """One-plan variant of generate() (identical windowing and
-        cross-fade)."""
+        cross-fade); ``devices`` as ``run_fused``'s."""
         plan = self.prepare_fused(words_per_clip, lang, vids,
                                   np.shape(audio)[1], generator)
-        return self.run_fused(audio, plan)
+        return self.run_fused(audio, plan, devices)
 
 
 class MultimodalSynthesizer(SlidingWindowSynthesizer):

@@ -36,9 +36,21 @@ keys, and an FGD embedder's checkpoint is the embedder's state dict):
   Adam (0.9, 0.999) at ``lr_for_epoch`` (StepLR 30 / 0.1), L1 of the poses
   and of their differences plus the weighted sum of bone cosines.
 
+Under a mesh (``system.mesh``, ``parallel/mesh.py``) a step is one rank's
+part of the global batch's step, its gradients averaged over the ranks
+before each Adam step.  Every batch reduction of the losses was checked
+for it: a mean over the batch (the Huber and L1 terms, the GAN pairs, KLD,
+the diversity term, seq2seq's MSE, continuity and variance terms, each a
+sum over the rank's elements over their count) is exact as a local mean;
+a sum over the batch (``EmbedSystem``'s and ``MotionAESystem``'s losses)
+is scaled by the rank count (``as_global_sum``), so the mean over ranks
+is the global sum; batch norm takes global statistics; the speaker
+permutation runs over the global batch; seq2seq clips at the global
+gradient norm.
+
 Losses are taken in float32 whatever the compute dtype.  After a step,
 every parameter's ``.grad`` holds that step's gradient (None where the
-step gave it none; seq2seq's clipped).  Randomness (speaker z, dropout,
+step gave it none; seq2seq's clipped; under FSDP a sharded leaf's shard).  Randomness (speaker z, dropout,
 the speaker permutation, the variational noise, the random mode's coin)
 comes from the ``torch.Generator`` the caller passes.  Every Adam has eps
 1e-8.
@@ -59,6 +71,9 @@ from ha2g_torch.models.multimodal_context import PoseGenerator
 from ha2g_torch.models.seq2seq import Seq2SeqNet
 from ha2g_torch.models import speech2gesture as s2g
 from ha2g_torch.ops.precision import resolve_dtype
+from ha2g_torch.parallel.mesh import (as_global_sum, distributed_step,
+                                      local_rows, optimizer_step,
+                                      permute_rows)
 from ha2g_torch.train import losses
 
 
@@ -73,6 +88,8 @@ def _place(system: nn.Module, cfg: Config, device, generator) -> None:
     system.to(device)
     system.device = device
     system.dtype = resolve_dtype(cfg.compute_dtype)
+    # the mesh of a multi-process run (``Mesh.place``), else None
+    system.mesh = None
 
 
 def _on_device(system, batch: dict, keys) -> tuple[torch.Tensor, ...]:
@@ -99,14 +116,11 @@ class _GanSystem(nn.Module):
         return _on_device(self, batch, keys or self.batch_keys)
 
     def _d_step(self, d_loss: torch.Tensor) -> None:
-        self.d_opt.zero_grad(set_to_none=True)
-        d_loss.backward()
-        self.d_opt.step()
+        # the G phase runs D again: gather its shards after the step
+        optimizer_step(self.d_opt, d_loss, self.mesh, regather=True)
 
     def _g_step(self, loss: torch.Tensor) -> None:
-        self.g_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.g_opt.step()
+        optimizer_step(self.g_opt, loss, self.mesh)
 
 
 class MultimodalGanSystem(_GanSystem):
@@ -144,6 +158,7 @@ class MultimodalGanSystem(_GanSystem):
         f32 = lambda t: None if t is None else t.float()
         return out.float(), f32(z), f32(mu), f32(logvar)
 
+    @distributed_step
     def train_step(self, batch: dict, gan_on: bool,
                    generator: torch.Generator,
                    rand_vids: torch.Tensor | None = None) -> dict:
@@ -187,9 +202,9 @@ class MultimodalGanSystem(_GanSystem):
             if rand_vids is None:
                 rand_vids = vids
                 if cfg.z_type == "speaker":
-                    perm = torch.randperm(vids.shape[0], generator=generator,
-                                          device=generator.device)
-                    rand_vids = vids[perm.to(vids.device)]
+                    rand_vids = permute_rows(vids, generator)
+            else:
+                rand_vids = local_rows(torch.as_tensor(rand_vids))
             with torch.no_grad(), keep_running_stats(self.gen):
                 out_r, z_r, _, _ = self._gen(
                     text, audio, target,
@@ -244,6 +259,7 @@ class S2GSystem(_GanSystem):
         pre = target[:, :self.cfg.n_pre_poses]
         return self.gen(spec, pre, self.dtype).float()
 
+    @distributed_step
     def train_step(self, batch: dict, generator: torch.Generator) -> dict:
         """One step on ``batch`` {spec (B, 128, S) log-mel, target
         (B, T, pose_dim)}; ``generator`` is unused (the step draws no
@@ -296,14 +312,25 @@ class S2GSystem(_GanSystem):
 # single-optimiser systems
 # ---------------------------------------------------------------------------
 
-def clip_grad_norm_optax_(params, max_norm: float) -> torch.Tensor:
+def clip_grad_norm_optax_(params, max_norm: float,
+                          mesh=None) -> torch.Tensor:
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
     g / ||g|| * max_norm when ||g|| >= max_norm, else g unchanged (torch's
     ``clip_grad_norm_`` divides by ||g|| + 1e-6).  -> ||g||, on the
-    device (no host read)."""
-    grads = [p.grad for p in params if p.grad is not None]
+    device (no host read).  Under a ``mesh`` the gradients are the
+    averaged global ones; the squares of FSDP-sharded leaves are summed
+    over their shards, so ||g|| is the global norm there too."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    split = [] if mesh is None else [p.grad for p in params
+                                     if mesh.sharded(p)]
+    whole = [p.grad for p in params if mesh is None or not mesh.sharded(p)]
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        torch.stack([torch.linalg.vector_norm(g) for g in whole]))
+    if split:
+        sq = torch.stack([torch.linalg.vector_norm(g) for g in split])
+        norm = torch.sqrt(norm * norm + mesh.sq_norm_of_shards(
+            torch.sum(sq * sq)))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -323,9 +350,7 @@ class _SingleSystem:
                                     betas=betas, eps=1e-8)
 
     def _step(self, loss: torch.Tensor) -> None:
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
+        optimizer_step(self.opt, loss, self.mesh)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, generator: torch.Generator):
@@ -375,6 +400,7 @@ class Seq2SeqSystem(_SingleSystem, Seq2SeqNet):
             * cfg.loss_reg_weight
         return mse + cont + var
 
+    @distributed_step
     def train_step(self, batch: dict, generator: torch.Generator) -> dict:
         """One step on ``batch`` {word_seq (B, S) padded SOS..EOS tokens,
         word_lengths (B,), target (B, T, pose_dim) (its first n_pre frames
@@ -382,10 +408,9 @@ class Seq2SeqSystem(_SingleSystem, Seq2SeqNet):
         target = _on_device(self, batch, ("target",))[0]
         self.train()
         loss = self.custom_loss(self._forward(batch, generator), target)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        clip_grad_norm_optax_(self.parameters(), self.max_grad_norm)
-        self.opt.step()
+        optimizer_step(self.opt, loss, self.mesh, clip=lambda: (
+            clip_grad_norm_optax_(self.parameters(), self.max_grad_norm,
+                                  self.mesh)))
         return {"loss": loss.detach()}
 
 
@@ -413,6 +438,7 @@ class EmbedSystem(_SingleSystem, EmbeddingNet):
         return self(text, audio, pre, target, dtype=self.dtype,
                     generator=generator)[-1]
 
+    @distributed_step
     def train_step(self, batch: dict, generator: torch.Generator) -> dict:
         """One step; -> {loss}: the per-sample mean L1 summed over the
         batch, plus the difference term with ``embed_pose_diff_loss``
@@ -425,7 +451,7 @@ class EmbedSystem(_SingleSystem, EmbeddingNet):
             per = per + torch.mean(torch.abs(
                 (recon[:, 1:] - recon[:, :-1])
                 - (target[:, 1:] - target[:, :-1])), dim=(1, 2))
-        loss = torch.sum(per)
+        loss = as_global_sum(torch.sum(per))
         self._step(loss)
         return {"loss": loss.detach()}
 
@@ -450,6 +476,7 @@ class MotionAESystem(_SingleSystem, MotionAE):
         target = _on_device(self, batch, ("target",))[0]
         return self(target, self.dtype)[0]
 
+    @distributed_step
     def train_step(self, batch: dict, generator: torch.Generator,
                    lr: float | None = None) -> dict:
         """One step at learning rate ``lr`` (the config's when None); ->
@@ -472,6 +499,7 @@ class MotionAESystem(_SingleSystem, MotionAE):
         norms = torch.linalg.vector_norm(rr, dim=-1) \
             * torch.linalg.vector_norm(tt, dim=-1)
         cos = 1.0 - torch.sum(rr * tt, dim=-1) / torch.clamp_min(norms, 1e-8)
-        loss = l1 + torch.sum(cos) * self.cfg.cos_loss_weight
+        l1 = as_global_sum(l1)
+        loss = l1 + as_global_sum(torch.sum(cos)) * self.cfg.cos_loss_weight
         self._step(loss)
         return {"loss": loss.detach(), "l1": l1.detach()}

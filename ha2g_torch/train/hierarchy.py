@@ -25,6 +25,14 @@ One train step keeps the JAX package's dataflow (and the reference's):
    prior; one backward that trains audio, text and generators, and the G
    Adam step.
 
+Under a mesh (``self.mesh``, set by ``parallel.mesh.Mesh.place``) a step
+is one rank's part of the global batch's step: batch norm takes the global
+batch's statistics, the contrastive loss spans every rank's rows, the noise
+(dropout, speaker z, the speaker permutation over the global batch) is the
+global batch's rows, and each phase's gradients are averaged over the
+ranks before its Adam step (FSDP: reduce-scattered, each rank stepping its
+shards, the discriminator gathered again for the G phase).
+
 Losses are taken in float32 whatever the compute dtype.  After a step,
 every parameter's ``.grad`` holds that step's gradient (None where the step
 gave it none).  Randomness (speaker z, dropout, the speaker permutation)
@@ -45,6 +53,8 @@ from ha2g_torch.models.hierarchy import (ConvDiscriminator,
                                          HierarchicalWavEncoder)
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.ops.precision import resolve_dtype
+from ha2g_torch.parallel.mesh import (distributed_step, local_rows,
+                                      optimizer_step, permute_rows)
 from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train import losses
 from ha2g_torch.train.cascade import run_cascade
@@ -89,6 +99,8 @@ class HierarchySystem(nn.Module):
         self.to(device)
         self.device = device
         self.dtype = resolve_dtype(cfg.compute_dtype)
+        # the mesh of a multi-process run (``Mesh.place``), else None
+        self.mesh = None
         self.mean_dir_vec = torch.as_tensor(cfg.mean_dir_vec_array,
                                             device=device)
         g_params = [p for m in (self.audio, self.text, self.gens)
@@ -116,13 +128,16 @@ class HierarchySystem(nn.Module):
                 f32(z), f32(mu), f32(logvar))
 
     # ------------------------------------------------------------------
+    @distributed_step
     def train_step(self, batch: dict, gan_on: bool,
                    generator: torch.Generator,
                    rand_vids: torch.Tensor | None = None) -> dict:
         """One GAN step (see module doc) on ``batch`` {text (B, T) tokens,
         spec (B, 128, S) log-mel, target (B, T, pose_dim), vids (B,)}.
         ``rand_vids`` overrides the speaker permutation of the diversity
-        term (drawn from ``generator`` otherwise).  Returns the metrics
+        term (drawn from ``generator`` otherwise; under a mesh, the global
+        batch's).  Under ``self.mesh`` the batch is this rank's rows of the
+        global batch (``parallel/mesh.py``).  Returns the metrics
         (0-d float32 tensors): dis (D phase only), loss (weighted Huber),
         c_pos, c_neg, DIV_REG, KLD, gen (with ``gan_on``), phy, each by
         the same conditions as the JAX step."""
@@ -142,9 +157,7 @@ class HierarchySystem(nn.Module):
             d_real = self.dis(target, dtype, generator).float()
             d_fake = self.dis(fake, dtype, generator).float()
             d_loss = losses.nsgan_d_loss(d_real, d_fake)
-            self.d_opt.zero_grad(set_to_none=True)
-            d_loss.backward()
-            self.d_opt.step()
+            optimizer_step(self.d_opt, d_loss, self.mesh, regather=True)
             metrics["dis"] = d_loss.detach()
 
         # ---------------- G phase (against the updated D) ----------------
@@ -186,9 +199,9 @@ class HierarchySystem(nn.Module):
             if rand_vids is None:
                 rand_vids = vids
                 if cfg.z_type == "speaker":
-                    perm = torch.randperm(vids.shape[0], generator=generator,
-                                          device=generator.device)
-                    rand_vids = vids[perm.to(vids.device)]
+                    rand_vids = permute_rows(vids, generator)
+            else:
+                rand_vids = local_rows(torch.as_tensor(rand_vids))
             with torch.no_grad():
                 outs_r, _, z_rand, _, _ = self._cascade(
                     blend, text, target, torch.as_tensor(
@@ -213,9 +226,7 @@ class HierarchySystem(nn.Module):
             loss = loss + phy
             metrics["phy"] = phy.detach()
 
-        self.g_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.g_opt.step()
+        optimizer_step(self.g_opt, loss, self.mesh)
         return metrics
 
     # ------------------------------------------------------------------

@@ -23,12 +23,24 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   drives the train steps' randomness.
 
 Every family of the JAX package: hierarchy, multimodal_context,
-speech2gesture, seq2seq, joint_embedding and gesture_autoencoder.  A
-single device (multi-device is ROADMAP A.6).
+speech2gesture, seq2seq, joint_embedding and gesture_autoencoder.
+
+Several processes (``torchrun``, or a process group the caller made) train
+as one global batch on the mesh of every rank, ``fsdp_devices`` of them
+sharding each parameter (``parallel/mesh.py``; the counterpart of the JAX
+trainer's mesh and ``_place_state``): rank 0's state is broadcast, or
+sharded under FSDP; each rank's loader takes its rows of every global
+batch; the epoch's metric sums are averaged over the ranks with the one
+host read; rank 0 evaluates (under FSDP after a gather every rank joins),
+keeps the history and writes the checkpoints (full tensors, both Adam
+states whole: the file a single process writes), and broadcasts the
+validation row, so every rank's best-tracking decides alike.  ``resume`` loads the whole state on
+every rank and shards it again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -47,6 +59,7 @@ from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator
 from ha2g_torch.eval.metrics import beat_consistency, maje_and_accel
 from ha2g_torch.models.seq2seq import MaskedBiGRUEncoder
 from ha2g_torch.models.tcn import TextEncoderTCN
+from ha2g_torch.parallel.mesh import mesh_for
 from ha2g_torch.utils.average_meter import AverageMeter
 
 # the families whose train step takes gan_on (epoch > loss_warmup)
@@ -101,11 +114,18 @@ class Trainer:
             lang.word_embedding_weights, device=self.device,
             generator=torch.Generator().manual_seed(self.seed))
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        # several processes: rank 0's state on every rank (sharded under
+        # FSDP), each rank's loader its rows of every global batch
+        self.mesh = mesh_for(cfg, self.device)
+        part = (0, 1)
+        if self.mesh is not None:
+            self.mesh.place(self.system)
+            part = (self.mesh.rank, self.mesh.world)
         # the train loader ships only the fields the step reads, to the
         # device; the val batches stay on the host (the metrics read them)
         self.train_loader = BatchLoader(
             train_samples, cfg.batch_size, shuffle=True,
-            keys=self.system.batch_keys, device=self.device)
+            keys=self.system.batch_keys, device=self.device, part=part)
         # drop the odd-sized last val batch, as the JAX package does
         self.val_loader = BatchLoader(
             val_samples, cfg.batch_size, shuffle=False,
@@ -116,6 +136,26 @@ class Trainer:
         # the host read of their output), the embedding, MAJE / accel / BC,
         # and the FGD statistics (np.cov + sqrtm)
         self.eval_times: dict[str, float] = {}
+
+    @property
+    def is_main(self) -> bool:
+        """The process that evaluates, logs the history and writes."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _full_state(self, state: bool = True):
+        """Every parameter (and Adam moment) whole within the block: a
+        gather every rank joins under FSDP, nothing otherwise."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return self.mesh.full_state(self.system, state=state)
+
+    def validate(self, epoch: int = 0) -> dict:
+        """``evaluate`` on rank 0, its row on every rank."""
+        if self.mesh is None:
+            return self.evaluate(epoch)
+        with self._full_state(state=False):
+            val = self.evaluate(epoch) if self.mesh.is_main else None
+        return self.mesh.broadcast_object(val)
 
     # ------------------------------------------------------------------
     def evaluate(self, epoch: int = 0) -> dict:
@@ -199,8 +239,14 @@ class Trainer:
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
         keys = sorted(sums)
-        host = torch.stack([sums[k] for k in keys]).cpu().tolist() \
-            if keys else []
+        host = []
+        if keys:
+            stacked = torch.stack([sums[k] for k in keys])
+            if self.mesh is not None:
+                # each rank's metric is its rows' share of the global one
+                stacked = self.mesh.mean_over_ranks(stacked)
+                n_samples *= self.mesh.world
+            host = stacked.cpu().tolist()
         means = {k: v / n_steps for k, v in zip(keys, host)}
         sps = n_samples / max(time.perf_counter() - t0, 1e-9)
         logging.info(f"[TRAIN] epoch {epoch}: " +
@@ -226,13 +272,17 @@ class Trainer:
         """Restore parameters, batch-norm statistics, the optimisers and
         the step count from a checkpoint; -> the epoch to start at (the
         saved ``extra.epoch`` + 1)."""
-        self.step = load_state(path, self.system)
+        with self._full_state():
+            self.step = load_state(path, self.system)
         _, extra = load_config(path)
         return int(extra.get("epoch", -1)) + 1
 
     def save(self, path, extra: dict) -> None:
-        save_checkpoint(path, self.system, self.cfg, self.lang, self.speaker,
-                        extra=extra, step=self.step)
+        """Rank 0 writes the whole state (every rank joins the gather)."""
+        with self._full_state():
+            if self.is_main:
+                save_checkpoint(path, self.system, self.cfg, self.lang,
+                                self.speaker, extra=extra, step=self.step)
 
     def fit(self, epochs: Optional[int] = None, save_path=None,
             resume_from: Optional[str] = None) -> list[dict]:
@@ -247,18 +297,19 @@ class Trainer:
                          f"{start_epoch}")
         save_path.mkdir(parents=True, exist_ok=True)
         history_path = save_path / "history.jsonl"
-        if not resume_from and history_path.exists():
+        if self.is_main and not resume_from and history_path.exists():
             history_path.unlink()   # a fresh run starts a fresh trajectory
         history = []
 
         def record(val: dict, epoch_no: int):
             row = {"epoch": epoch_no, **{k: float(v) for k, v in val.items()}}
             history.append(row)
-            with open(history_path, "a") as f:
-                f.write(json.dumps(row) + "\n")
+            if self.is_main:
+                with open(history_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
 
         for epoch in range(start_epoch, epochs):
-            val = self.evaluate(epoch)      # evaluation first (train.py:190)
+            val = self.validate(epoch)      # evaluation first (train.py:190)
             record(val, epoch)
             self._track_best(val, epoch, save_path)
             if epoch % 10 == 0 and epoch > 0:
@@ -266,7 +317,7 @@ class Trainer:
                           {"epoch": epoch - 1})
             self.train_epoch(epoch)
 
-        val = self.evaluate(epochs)
+        val = self.validate(epochs)
         record(val, epochs)
         self._track_best(val, epochs, save_path)
         self.save(save_path / "checkpoint_final", {"epoch": epochs - 1})

@@ -4,12 +4,18 @@ ha2g_tpu/train/losses.py (reference scripts/train_eval/*).
 * scaled Huber: torch ``smooth_l1_loss(x/beta, y/beta) * beta``;
 * softmax contrastive on inverse-L2 similarity: rows L2-normalised here,
   then ``ops/contrastive.py::flash_contrastive`` (kernels B2-B4 on the
-  card), so no (N, N) tensor exists on the card's path;
+  card), so no (N, N) tensor exists on the card's path; under a mesh on
+  the rows of every rank;
 * speaker KLD, the diversity regulariser (its three stop-gradients), the
   ns-GAN pair, the physical angle prior and an L1 loss.
 
 Every function takes and returns float32 (the train step casts at the
-loss boundary).
+loss boundary).  Under a mesh (``parallel/mesh.py``) each rank holds its
+rows of the global batch, and the gradients are averaged over the ranks
+after the backward: a mean over the batch (Huber, KLD, the diversity
+term, the GAN pair, the physical prior, L1) is then exact as a local
+mean, since every rank holds as many rows; the contrastive loss gathers
+its rows.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 import torch
 
 from ha2g_torch.ops.contrastive import flash_contrastive
+from ha2g_torch.parallel.mesh import current_mesh
 from ha2g_torch.skeleton import SkeletonSpec
 
 
@@ -37,9 +44,20 @@ def _normalize_rows(x, eps: float):
 def softmax_contrastive(feat_a, feat_b, eps: float = 1e-8):
     """CE over inverse-L2 similarity with diagonal labels
     (SoftmaxContrastiveLoss, train_hierarchy.py:54-68).  feat_a, feat_b:
-    (N, D) per-frame features, N = B*T."""
+    (N, D) per-frame features, N = B*T.  Under a mesh the loss spans the
+    global batch: both normalised sets are all-gathered with autograd, every
+    rank computes the same global loss, and the gather's backward sums the
+    ranks' cotangents, so the gradient average over the ranks gives the
+    global loss's gradient (a gather that kept only the local rows' graph
+    would give 1 / W of it).  The mesh is the one of the enclosing
+    ``Mesh.part`` (every system's ``train_step`` runs inside it through
+    ``distributed_step``): called outside it, the loss spans this rank's
+    rows alone."""
     a = _normalize_rows(feat_a, eps).contiguous()
     b = _normalize_rows(feat_b, eps).contiguous()
+    mesh = current_mesh()
+    if mesh is not None:
+        a, b = mesh.all_gather_rows(a), mesh.all_gather_rows(b)
     return flash_contrastive(a, b)
 
 

@@ -34,10 +34,11 @@ def cuda():
 # group (B <= 16) and several (96, 97: a ragged last group), FFMA rows
 # 1 / 4 / 8 and the bf16 tensor-core path at 16 rows; the GAN baselines'
 # batch 128 (16 clusters) at the multimodal generator's H = 300 and its
-# discriminator's H = 64 over 28 steps
+# discriminator's H = 64 over 28 steps; the Expressive step's 48 rows a
+# rank on two data-parallel ranks
 SHAPES = [(7, 3, 48), (34, 1, 300), (34, 8, 300), (34, 96, 300),
           (34, 97, 300), (11, 5, 200), (6, 16, 45), (34, 128, 300),
-          (28, 128, 64)]
+          (28, 128, 64), (34, 48, 300)]
 
 
 def _b1_args(T, B, H, dtype, device, seed=0):
@@ -305,3 +306,138 @@ def test_multimodal_train_step_launches_b1_as_its_dataflow(cuda, gan_on):
         L * (2 + gan_on) + d * (1 + 2 * gan_on)
     assert gru_backward_loop.launches - b0 == L + d * 3 * gan_on
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def _narrow_hierarchy(device, **kw):
+    from ha2g_torch.config import Config
+    from ha2g_torch.train.hierarchy import HierarchySystem
+    cfg = Config(model="hierarchy", dataset="ted_gesture", pose_dim=27,
+                 n_poses=34, hidden_size=32, n_layers=2,
+                 compute_dtype="float32", **kw)
+    return HierarchySystem(cfg, 20, 5, device=device,
+                           generator=torch.Generator().manual_seed(0))
+
+
+def test_data_parallel_step_on_one_nccl_rank(cuda):
+    """The data-parallel path on a 1-rank NCCL group (its all-reduces,
+    gathers and gradient bucket) launches the plain step's kernels and
+    gives its losses and gradients (chip_smoke.py phase 11 holds the
+    full-width step bit for bit)."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ha2g_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(0)
+    batch = {"text": rng.integers(0, 20, (8, 34)),
+             "spec": rng.normal(size=(8, 128, 70)).astype(np.float32),
+             "target": (rng.normal(size=(8, 34, 27)) * 0.1)
+             .astype(np.float32),
+             "vids": rng.integers(0, 5, (8,))}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, Mesh(1, 1, cuda)):
+            system = _narrow_hierarchy(cuda)
+            if mesh is not None:
+                mesh.place(system)
+            before = (gru_recurrence.launches, C.contrastive_fwd.launches)
+            metrics = system.train_step(
+                batch, True, torch.Generator(cuda).manual_seed(1))
+            torch.cuda.synchronize()
+            runs.append((metrics, dict(system.named_parameters()),
+                         (gru_recurrence.launches - before[0],
+                          C.contrastive_fwd.launches - before[1])))
+    finally:
+        dist.destroy_process_group()
+    (m0, p0, n0), (m1, p1, n1) = runs
+    assert n0 == n1 and n0[1] == 2
+    for k in m0:
+        torch.testing.assert_close(m1[k], m0[k], rtol=1e-6, atol=0)
+    for k, p in p0.items():
+        if p.grad is not None:
+            torch.testing.assert_close(p1[k].grad, p.grad, rtol=1e-5,
+                                       atol=1e-7)
+
+
+def test_run_fused_over_two_devices_matches_one_call(cuda):
+    """``run_fused(devices=[cuda, cuda])``: two threads, each half the
+    batch, the whole batch's speaker-z noise: within 2e-4 of one call."""
+    import numpy as np
+
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.synthesis import make_synthesizer
+
+    system = _narrow_hierarchy(cuda, z_type="speaker")
+    synth = make_synthesizer(system, system.state_dict())
+    lang = Vocab("words")
+    for i in range(20 - lang.n_words):
+        lang.index_word(f"w{i}")
+    rng = np.random.default_rng(1)
+    audio = (rng.normal(size=(4, 4 * 16000)) * 0.1).astype(np.float32)
+    words = [[(f"w{j}", 0.3 * j, 0.3 * j + 0.2) for j in range(8)]
+             for _ in range(4)]
+    outs = []
+    for devices in (None, [cuda, cuda]):
+        plan = synth.prepare_fused(words, lang, np.arange(4), audio.shape[1],
+                                   torch.Generator(cuda).manual_seed(2))
+        outs.append(synth.run_fused(audio, plan, devices=devices))
+    np.testing.assert_allclose(outs[1], outs[0], atol=2e-4)
+
+
+def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):
+    """``torchrun -m ha2g_torch.cli train`` on every card of the machine (up
+    to 4; one NCCL rank a card, ``--fsdp_devices 2``: FSDP's gathers and
+    reduce-scatters over ``model`` on NCCL, and on 4 cards the average
+    over ``data``) ends within 5e-3 of one process's final validation
+    loss (tests/test_parallel.py:278).  Needs two cards or more."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from ha2g_torch.data.storage import save_clips
+    from ha2g_torch.data.synthetic import synthetic_clips
+    from ha2g_torch.skeleton import TED_GESTURE
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two NVIDIA GPUs or more (NCCL: one rank a card)")
+    root = Path(__file__).resolve().parents[1]
+    save_clips(tmp_path / "train", synthetic_clips(TED_GESTURE, n_clips=2,
+                                                   seed=0))
+    save_clips(tmp_path / "val", synthetic_clips(TED_GESTURE, n_clips=2,
+                                                 seed=1))
+
+    def args(out):
+        return ["-m", "ha2g_torch.cli", "train", "--config",
+                str(root / "configs" / "hierarchy.yaml"), "--device", "cuda",
+                "--hidden_size", "32", "--n_layers", "2", "--batch_size", "8",
+                "--compute_dtype", "float32", "--epochs", "2",
+                "--loss_warmup", "0", "--random_seed", "0",
+                "--train_data_path", str(tmp_path / "train"),
+                "--test_data_path", str(tmp_path / "val"),
+                "--model_save_path", str(tmp_path / out),
+                "--eval_net_path", ""]
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    runs = [[sys.executable, *args("single")],
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(n), *args("ranks"),
+             "--fsdp_devices", "2"]]
+    for cmd in runs:
+        done = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    losses = [json.loads((tmp_path / out / "history.jsonl").read_text()
+                         .splitlines()[-1])["loss"]
+              for out in ("single", "ranks")]
+    assert abs(losses[1] - losses[0]) <= 5e-3 * max(1.0, abs(losses[0])), \
+        losses

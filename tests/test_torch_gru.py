@@ -112,7 +112,7 @@ def test_gru_gradients_match_jax_grad():
         out, h = jgru.apply({"params": p}, xx)
         return jnp.sum(out * ct) + jnp.sum(h ** 2)
 
-    gp, gx = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(f, argnums=(0, 1)))(params, jnp.asarray(x))
     gru = GRU(10, H, n_layers=2).eval()
     sd = {}
     _gru(jax.device_get(params), sd, "gru", 2)
@@ -191,3 +191,14 @@ def test_cluster_plan_rejects_above_max_hidden():
     assert MAX_HIDDEN >= 300        # every config of configs*/ fits
     with pytest.raises(ValueError, match="does not fit"):
         cluster_plan(MAX_HIDDEN + 1, 16, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_plan_at_a_data_parallel_rank_rows(dtype):
+    """The Expressive step's 96 rows on two data-parallel ranks: 48 rows a
+    rank run as 3 row groups of 16, one cluster a direction each (6 of the
+    15 the card runs at once), as chip_smoke.py times (34, 48, 300)."""
+    from ha2g_torch.ops.gru_kernel import rows_per_group
+    assert rows_per_group(48) == 16
+    plan = cluster_plan(300, 48, dtype)
+    assert plan["rows"] == 16 and plan["clusters"] == 2 * 3

@@ -124,8 +124,8 @@ def test_conv_discriminator_matches_jax(train):
                                 jnp.asarray(poses)), {"batch_stats": stats}
         return jnp.sum(jnp.log(out)), (out, upd["batch_stats"])
 
-    (_, (want, new_stats)), grads = jax.value_and_grad(f, has_aux=True)(
-        v["params"])
+    (_, (want, new_stats)), grads = jax.jit(jax.value_and_grad(
+        f, has_aux=True))(v["params"])
 
     sd = convert.discriminator_state(v["params"], stats)
     ref = export_torch.export_discriminator(v["params"], stats)
@@ -160,9 +160,8 @@ def test_text_encoder_freeze_and_fixed_embedding_dropout():
                 dropout=0.0, freeze=True)
     params = jax.device_get(jm.init(jax.random.PRNGKey(0),
                                     jnp.asarray(tokens))["params"])
-    grads = jax.grad(lambda p: jnp.sum(jm.apply({"params": p},
-                                                jnp.asarray(tokens)) ** 2))(
-        params)
+    grads = jax.jit(jax.grad(lambda p: jnp.sum(jm.apply(
+        {"params": p}, jnp.asarray(tokens)) ** 2)))(params)
     m = TextEncoderTCN(12, embed_dim=16, hidden_size=8, n_layers=2,
                        dropout=0.0, freeze=True).eval()
     m.load_state_dict(convert.text_encoder_state(params, 2), strict=True)

@@ -154,24 +154,71 @@ def _state(tree_params, tree_stats) -> dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in sd.items()}
 
 
-def run_and_compare(dataset: str, pose_dim: int, gan_on: bool) -> None:
-    system, state, batch, common = jax_setup(dataset, pose_dim)
-    port = port_setup(state, common)
-    old = {k: v.detach().clone().numpy() for k, v in port.state_dict().items()}
+@functools.cache
+def jax_step(dataset: str, pose_dim: int, gan_on: bool):
+    """The JAX step of ``jax_setup``'s system (one compile a module) ->
+    (metrics, speaker permutation it drew, its gradients and its new state
+    in the port's layout)."""
+    system, state, batch, _ = jax_setup(dataset, pose_dim)
     rng = jax.random.PRNGKey(42)
     new_state, metrics = system.make_train_step(gan_on)(
         state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     k_perm = jax.random.split(rng, 5)[3]
     rand_vids = np.asarray(jax.random.permutation(k_perm, batch["vids"]))
-
-    got = port.train_step(batch, gan_on, torch.Generator().manual_seed(0),
-                          rand_vids=torch.tensor(rand_vids))
-
     g_grads = new_state.g_opt[0]["grads"]
     want_grads = _state({**g_grads, "dis": new_state.d_opt[0]["grads"]},
                         new_state.batch_stats)
-    compare_step(got, metrics, port, old, want_grads,
-                 _state(new_state.params, new_state.batch_stats),
+    return ({k: float(v) for k, v in metrics.items()}, rand_vids, want_grads,
+            _state(new_state.params, new_state.batch_stats))
+
+
+def run_and_compare(dataset: str, pose_dim: int, gan_on: bool) -> None:
+    _, state, batch, common = jax_setup(dataset, pose_dim)
+    port = port_setup(state, common)
+    old = {k: v.detach().clone().numpy() for k, v in port.state_dict().items()}
+    metrics, rand_vids, want_grads, want_new = jax_step(dataset, pose_dim,
+                                                        gan_on)
+    got = port.train_step(batch, gan_on, torch.Generator().manual_seed(0),
+                          rand_vids=torch.tensor(rand_vids))
+    compare_step(got, metrics, port, old, want_grads, want_new,
+                 lr=WEIGHTS["learning_rate"],
+                 d_lr=WEIGHTS["learning_rate"]
+                 * WEIGHTS["discriminator_lr_weight"])
+
+
+def start_dp_ranks(dataset: str, pose_dim: int, gan_on: bool, out):
+    """Start the port's step on 2 data-parallel ranks (gloo, 2 rows each of
+    the 4-row batch; tests/torch_parallel_child.py) from ``jax_setup``'s
+    state, with the speaker permutation the JAX step draws (its key is
+    split without compiling the step, so the ranks run while it
+    compiles).  -> the ranks (``Ranks``)."""
+    from tests.torch_parallel_child import Ranks
+
+    _, state, batch, common = jax_setup(dataset, pose_dim)
+    k_perm = jax.random.split(jax.random.PRNGKey(42), 5)[3]
+    rand_vids = np.asarray(jax.random.permutation(k_perm, batch["vids"]))
+    torch.save({"config": common, "n_words": N_WORDS, "n_speakers": N_SPK,
+                "state": port_setup(state, common).state_dict(),
+                "batch": batch, "gan_on": gan_on,
+                "rand_vids": torch.tensor(rand_vids)},
+               out / "jax_dp_input.pt")
+    return Ranks("jax_dp", out)
+
+
+def compare_dp_step(dataset: str, pose_dim: int, gan_on: bool,
+                    ranks) -> None:
+    """The 2-rank step of ``start_dp_ranks`` against the JAX step, by
+    ``compare_step``: the metrics averaged over the ranks, rank 0's
+    averaged gradients and new state."""
+    _, state, _, common = jax_setup(dataset, pose_dim)
+    port = port_setup(state, common)
+    old = {k: v.detach().clone().numpy() for k, v in port.state_dict().items()}
+    metrics, _, want_grads, want_new = jax_step(dataset, pose_dim, gan_on)
+    rank0 = ranks.results()[0]
+    port.load_state_dict(rank0["state"], strict=True)
+    for key, p in port.named_parameters():
+        p.grad = rank0["grads"][key]
+    compare_step(rank0["metrics"], metrics, port, old, want_grads, want_new,
                  lr=WEIGHTS["learning_rate"],
                  d_lr=WEIGHTS["learning_rate"]
                  * WEIGHTS["discriminator_lr_weight"])
