@@ -117,7 +117,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    one process on the card (tests/test_parallel.py's bounds), and FSDP
    against DP; (d) ``run_fused(devices=[cuda:0, cuda:0])`` at B = 8
    against one call, fp32, 2e-4.  B1 at the per-rank shape (34, 48, 300)
-   is held against its plain version in phase 2 and timed in phase 5.
+   is held against its plain version in phase 2 and timed in phase 5;
+12. the host data path: a source lmdb in the reference's bytes (6 videos
+   x 4 clips x 20 s of TED Expressive, audio_raw at 16 kHz and a float16
+   log-mel, ~38 MB) and a cache lmdb of the same clips' windows (~168 MB)
+   written by the port's lmdb writer and pyarrow-0.14 codec, read back
+   bit for bit (read and decode MB/s); ``cli import-lmdb`` in both
+   formats and ``cli import-embeddings`` from a fastText .bin (dim 300,
+   bucket 2000, n-grams 3-6) and a .vec (seconds, MB/s); ``cli train`` of
+   the full-width bf16 Expressive hierarchy for an epoch on the imported
+   clips with the .bin (warm-up steps) and on the imported samples with
+   the .vec (GAN steps), every kernel's launches against the dataflow,
+   step ms, samples/s, peak memory, then B1, its backward and B2-B4
+   against their plain versions at the path's shapes; ``cli
+   compare-trajectory`` of the run against ted_expressive_new (the
+   report's structure); ``cli train`` of the gesture autoencoder on a
+   synthetic Human3.6M npz (no launch); ``cli doctor`` (exit 0, the
+   card's name, its tiny step's launches).
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -315,13 +331,13 @@ def _b1_bwd_inputs(T, B, H, dtype, seed):
     return xp, hh, h_prev, w_hh, d_outs
 
 
-def _b1_bwd_check():
+def _b1_bwd_check(shapes=B1_BWD_SHAPES):
     """B1's backward kernel against its plain loop on the same inputs,
     relative L2 error of d_gx, d_gh and d_h0."""
     from ha2g_torch.ops.gru_kernel import (gru_backward_loop,
                                            gru_backward_loop_plain)
     errs = {}
-    for T, B, H in B1_BWD_SHAPES:
+    for T, B, H in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = _b1_bwd_inputs(T, B, H, dtype, seed=B + H)
             got = gru_backward_loop(*args)
@@ -512,13 +528,15 @@ def _rel_each(got, want) -> float:
     return ((got - want).abs() / want.abs()).max().item()
 
 
-def _b234_check():
+def _b234_check(random_shapes=((3264, 32), (8704, 32), (1000, 32),
+                                (1000, 128)), aligned=(3264, 1000),
+                duplicates=True):
     """B2-B4 against their plain versions: random unit rows (fp32 plain
     version), aligned rows (float64 plain version) and rows with exact
     duplicates (finite)."""
     from ha2g_torch.ops import contrastive as C
     errs = {}
-    for N, D in ((3264, 32), (8704, 32), (1000, 32), (1000, 128)):
+    for N, D in random_shapes:
         a, b = _b234_inputs(N, D, seed=N + D)
         g = torch.full((1,), 0.7 / N, device="cuda")
         logz, diag, da, db = _b234_kernels(a, b, g)
@@ -542,7 +560,7 @@ def _b234_check():
             "b3": (da - p_da).abs().max().item(),
             "b4": (db - p_db).abs().max().item()}
     # aligned rows against float64: tells an fp32 product from a TF32 one
-    for N in (3264, 1000):
+    for N in aligned:
         for sigma in (0.3, 0.1):
             a, b = _aligned_rows(N, 32, sigma, seed=N)
             g = torch.full((1,), 0.7 / N, device="cuda")
@@ -573,6 +591,8 @@ def _b234_check():
                 raise AssertionError(f"B2-B4 disagree with float64 on aligned "
                                      f"rows, sigma={sigma} N={N}")
             errs[(N, sigma)] = e
+    if not duplicates:
+        return errs
     # exact duplicates: diagonal logits at ~1e6, where B3 or B4 rounding s
     # otherwise than B2 overflows exp(logit - logz)
     a, b = _b234_inputs(3264, 32, seed=11)
@@ -730,13 +750,14 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
     With ``want`` ({kernel: launches the dataflow gives}), a profile whose
     launches differ from it is printed and the call profiled again, up to
     ``tries`` profiles in all; it raises if every one differs.  The tracer
-    now and then drops a kernel's record (on an H100, once, one of the
-    seq2seq step's two B1 launches; a warm-up step before the profiled
-    call does not prevent it), so one profile short of the dataflow says
-    nothing of the program, while a launch the dataflow counts that never
-    reaches the card is missing from every profile."""
+    has dropped a kernel's record (on an H100, one of the seq2seq step's
+    two B1 launches, late in a long run; ``PROFILE_PAD_S``), so one
+    profile short of the dataflow says nothing of the program, while a
+    launch the dataflow counts that never reaches the card is missing from
+    every profile."""
     for attempt in range(1, tries + 1):
-        per_name = _device_kernels(fn)
+        window = {}
+        per_name = _device_kernels(fn, window)
         if not per_name:
             _line("profile", request=name, device_busy_ms="not measured",
                   reason="the profiler recorded no device events")
@@ -747,7 +768,8 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
         if want is None or all(seen[k][0] == want[k] for k in kernels):
             break
         _line("profile-short", request=name, attempt=attempt,
-              **{f"{k}_kernels": f"{seen[k][0]}/{want[k]}" for k in kernels})
+              **{f"{k}_kernels": f"{seen[k][0]}/{want[k]}" for k in kernels},
+              **window)
     else:
         raise AssertionError(f"every one of {tries} profiles of {name} "
                              f"shows other launches than the dataflow's "
@@ -768,22 +790,45 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
     return seen, busy
 
 
-def _device_kernels(fn):
+# host time at each end of a profiled call, inside the profiler's window.
+# Late in a long run (~400 s) one of the seq2seq step's two B1 launches,
+# made within a few ms of the window's start, was missing from three
+# profiles in a row, while a fresh process recorded both in 12 of 12.  A
+# device timestamp outside the capture window would explain it (the card's
+# clock drifting from the host's), but that is not shown: a short profile
+# prints the window's host and device ends so it can be.  The padding
+# holds no device work.
+PROFILE_PAD_S = 0.05
+
+
+def _device_kernels(fn, window=None):
     """One call of fn under torch.profiler -> {kernel name: (device ms,
-    launches)}."""
+    launches)}.  A dict passed as ``window`` gets the first start and last
+    end, in the profiler's microseconds, of its host and device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
-    per_name = {}
+        time.sleep(PROFILE_PAD_S)
+    per_name, ends = {}, {"host": [], "device": []}
     for e in prof.events():
         # user annotations (e.g. the optimiser's step range) span kernels
         # that are counted on their own
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+        on_card = e.device_type == DeviceType.CUDA
+        ends["device" if on_card else "host"].append(
+            (e.time_range.start, e.time_range.end))
+        if on_card and not e.is_user_annotation:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    if window is not None:
+        for side, spans in ends.items():
+            if spans:
+                window[f"{side}_us"] = (f"{min(a for a, _ in spans):.0f}-"
+                                        f"{max(b for _, b in spans):.0f}")
     return per_name
 
 
@@ -3155,6 +3200,371 @@ def _multi_device(work: Path, device="cuda:0", overrides=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the host data path
+# ---------------------------------------------------------------------------
+
+DATA_CONFIG = "configs_expressive/hierarchy.yaml"
+# the source lmdb: videos x clips of 20 s TED Expressive clips at the
+# released records' size (audio_raw at 16 kHz float32, a float16 log-mel
+# audio_feat): ~40 MB, ~310 overflow pages a clip
+DATA_VIDEOS, DATA_CLIPS_PER_VIDEO, DATA_CLIP_SECONDS = 6, 4, 20.0
+DATA_WORDS_PER_SECOND = 2.5
+# the cache lmdb's windows: n_poses * 1.25 frames at the config's stride
+DATA_N_EXT, DATA_STRIDE = 42, 10
+# the fastText model: the crawl model's dim, n-grams 3-6, a small bucket
+FASTTEXT = dict(dim=300, bucket=2000, minn=3, maxn=6)
+# the H36M npz: subject -> action -> frames of 32 joints
+H36M_FRAMES = {"S1": 1500, "S5": 1200, "S11": 1500}
+# the hierarchy's ConvDiscriminator: a bi-GRU of 64 over n_poses - 6 steps
+DISCRIMINATOR_HIDDEN = 64
+
+
+def _data_videos():
+    """The source lmdb's video records (make_ted_dataset.py's layout):
+    synthetic TED Expressive clips with a word every 0.4 s, their log-mel
+    as float16 ``audio_feat``."""
+    from ha2g_torch.data.synthetic import synthetic_clips
+    from ha2g_torch.ops.mel import log_mel_np
+    from ha2g_torch.skeleton import TED_EXPRESSIVE
+    clips = synthetic_clips(TED_EXPRESSIVE,
+                            n_clips=DATA_VIDEOS * DATA_CLIPS_PER_VIDEO,
+                            clip_seconds=DATA_CLIP_SECONDS, n_speakers=6,
+                            seed=12)
+    rng = np.random.default_rng(12)
+    vocab = [f"word{i}" for i in range(400)]
+    videos = []
+    for v in range(DATA_VIDEOS):
+        records = []
+        first = v * DATA_CLIPS_PER_VIDEO
+        for c in clips[first:first + DATA_CLIPS_PER_VIDEO]:
+            n = int(DATA_CLIP_SECONDS * DATA_WORDS_PER_SECOND)
+            starts = np.sort(rng.uniform(0, DATA_CLIP_SECONDS - 0.3, n))
+            records.append({
+                "words": [[str(rng.choice(vocab)), float(t), float(t + 0.25)]
+                          for t in starts],
+                "skeletons_3d": c["skeletons_3d"].astype(np.float32),
+                "audio_feat": log_mel_np(c["audio_raw"]).astype(np.float16),
+                "audio_raw": c["audio_raw"].astype(np.float32),
+                "start_frame_no": int(c["start_frame_no"]),
+                "end_frame_no": int(c["end_frame_no"]),
+                "start_time": float(c["start_time"]),
+                "end_time": float(c["end_time"])})
+        videos.append({"vid": f"video_{v}", "clips": records})
+    return videos
+
+
+def _cache_records(videos, mean_dir_vec):
+    """The same clips as the reference's cache stores them
+    (data_preprocessor.py:150-165): a record a window of n_poses * 1.25
+    resampled frames at the stride with two words or more: [words, poses,
+    direction vectors minus the mean, audio, log-mel, aux_info]."""
+    from ha2g_torch.data.dataset import (_pose_to_dir_vec_np,
+                                         resample_pose_seq,
+                                         spectrogram_length_for)
+    from ha2g_torch.skeleton import TED_EXPRESSIVE
+    fps = 15
+    audio_len = int(round(DATA_N_EXT / fps * SR))
+    spec_len = spectrogram_length_for(DATA_N_EXT, fps)
+    records = []
+    for video in videos:
+        for clip in video["clips"]:
+            skel = resample_pose_seq(clip["skeletons_3d"],
+                                     clip["end_time"] - clip["start_time"],
+                                     fps)
+            spec, audio = clip["audio_feat"], clip["audio_raw"]
+            for s in range(0, len(skel) - DATA_N_EXT + 1, DATA_STRIDE):
+                t0 = clip["start_time"] + s / fps
+                t1 = t0 + DATA_N_EXT / fps
+                words = [w for w in clip["words"] if t0 <= w[1] <= t1]
+                a0 = int(s / len(skel) * spec.shape[1])
+                r0 = int(s / len(skel) * len(audio))
+                if (len(words) < 2 or a0 + spec_len > spec.shape[1]
+                        or r0 + audio_len > len(audio)):
+                    continue
+                poses = skel[s:s + DATA_N_EXT]
+                vec = _pose_to_dir_vec_np(poses, TED_EXPRESSIVE).reshape(
+                    DATA_N_EXT, -1) - mean_dir_vec.reshape(1, -1)
+                records.append([
+                    words, poses, vec.astype(np.float32),
+                    audio[r0:r0 + audio_len],
+                    spec[:, a0:a0 + spec_len].astype(np.float32),
+                    {"vid": video["vid"], "start_frame_no": s,
+                     "end_frame_no": s + DATA_N_EXT, "start_time": t0,
+                     "end_time": t1}])
+    return records
+
+
+def _same(got, want) -> bool:
+    """Equal objects, ndarrays bit for bit with equal dtypes."""
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and got.shape == want.shape
+                and got.tobytes() == want.tobytes())
+    if isinstance(want, dict):
+        return (type(got) is dict and list(got) == list(want)
+                and all(_same(got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (type(got) is type(want) and len(got) == len(want)
+                and all(_same(a, b) for a, b in zip(got, want)))
+    return type(got) is type(want) and got == want
+
+
+def _read_back(path, values, card):
+    """Every record of an lmdb read with the port's reader and decoded with
+    its codec, against what was written; -> MB."""
+    from ha2g_torch.data.arrow_legacy import deserialize
+    from ha2g_torch.data.lmdb_mini import MiniLmdbReader
+    reader = MiniLmdbReader(path)
+    t = time.perf_counter()
+    raw = [bytes(v) for _, v in reader.items()]
+    read_s = time.perf_counter() - t
+    reader.close()
+    t = time.perf_counter()
+    decoded = [deserialize(r) for r in raw]
+    decode_s = time.perf_counter() - t
+    mb = sum(len(r) for r in raw) / 1e6
+    file_mb = (Path(path) / "data.mdb").stat().st_size / 1e6
+    ok = len(decoded) == len(values) and all(
+        _same(d, v) for d, v in zip(decoded, values))
+    _line("data-lmdb", store=Path(path).name, MB=f"{mb:.1f}",
+          records=len(raw), file_MB=f"{file_mb:.1f}",
+          read_MB_per_s=f"{mb / read_s:.0f}",
+          decode_MB_per_s=f"{mb / decode_s:.0f}", bit_equal=ok, card=card)
+    if not ok:
+        raise AssertionError(f"{path} does not read back what was written")
+    return mb
+
+
+def _timed_train_steps():
+    """Wrap HierarchySystem.train_step with a synchronised host clock;
+    -> (the step times list, a function that unwraps it)."""
+    from ha2g_torch.train.hierarchy import HierarchySystem
+    step = HierarchySystem.train_step
+    times = []
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    HierarchySystem.train_step = timed
+    return times, lambda: setattr(HierarchySystem, "train_step", step)
+
+
+def _data_train(name, argv, n_train, n_val, gan_on, card, cfg):
+    """``cli train`` of one epoch: the launches of every kernel against the
+    dataflow, finite validation rows; step ms, samples/s, peak GiB.
+    -> the launch counts."""
+    zero = dict.fromkeys(_expected_counts(cfg, True), 0)
+    per_eval = {**zero, "b1": n_val * cfg.skeleton.n_levels * cfg.n_layers}
+    epoch = {k: n_train * v for k, v in _expected_counts(cfg, gan_on).items()}
+    times, unwrap = _timed_train_steps()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        _cli_call(argv, _add(per_eval, per_eval, epoch))
+    finally:
+        unwrap()
+    counts = _read_counts()
+    out = Path(argv[argv.index("--model_save_path") + 1])
+    rows = [json.loads(ln) for ln in
+            (out / "history.jsonl").read_text().splitlines()]
+    finite = [r["epoch"] for r in rows] == [0, 1] and all(
+        np.isfinite(r[k]) for r in rows for k in ("loss", "joint_mae"))
+    steady = times[1:] or times
+    ms = statistics.median(steady)
+    _line("data-train", data=name, gan_on=gan_on, steps=len(times),
+          first_step_ms=f"{times[0]:.1f}", step_ms_median=f"{ms:.1f}",
+          samples_per_s=f"{cfg.batch_size / ms * 1e3:.1f}",
+          peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
+          val_rows_finite=finite, card=card)
+    if not finite or len(times) != n_train:
+        raise AssertionError(f"cli train on {name} failed its checks")
+    return counts, out
+
+
+def _hierarchy_checks(cfg, B):
+    """B1, its backward and B2-B4 against their plain versions at the
+    shapes a hierarchy GAN step of ``cfg`` at batch B gives them: the
+    generator's GRU (n_poses, B, hidden), the discriminator's (n_poses - 6,
+    B, 64) and the contrastive rows N = B * n_poses."""
+    T, N = cfg.n_poses, B * cfg.n_poses
+    shapes = ((T, B, cfg.hidden_size), (T - 6, B, DISCRIMINATOR_HIDDEN))
+    with _uncounted():
+        _b1_check(shapes)
+        _b1_bwd_check(shapes)
+        _b234_check(random_shapes=((N, 32),), aligned=(N,),
+                    duplicates=False)
+
+
+def _data_path(work: Path, card: str):
+    """Phase 12: the reference's lmdb stores written and read back by the
+    port's lmdb writer / reader and pyarrow-0.14 codec, ``cli import-lmdb``
+    in both formats, ``cli import-embeddings`` from a fastText .bin and a
+    .vec, ``cli train`` of the full-width bf16 Expressive hierarchy on the
+    imported clips (warm-up steps, fastText vectors) and on the imported
+    cache samples (GAN steps) with the kernels' launches and B1-B4 against
+    their plain versions at the path's shapes, ``compare-trajectory``, the
+    H36M gesture autoencoder and ``doctor``.  -> launch counts by path."""
+    from ha2g_torch import cli
+    from ha2g_torch.config import Config, parse_cli
+    from ha2g_torch.data.arrow_legacy import serialize
+    from ha2g_torch.data.fasttext_bin import load_model, write_model
+    from ha2g_torch.data.lmdb_import import (load_imported_samples,
+                                             write_reference_lmdb)
+    from ha2g_torch.data.lmdb_mini import write_lmdb
+    from ha2g_torch.eval.trajectory import load_history_jsonl
+
+    t0 = time.perf_counter()
+    cfg = Config.from_yaml(ROOT / DATA_CONFIG)
+    zero = dict.fromkeys(_expected_counts(cfg, True), 0)
+    videos = _data_videos()
+    cache = _cache_records(videos, cfg.mean_dir_vec_array)
+    t = time.perf_counter()
+    write_reference_lmdb(work / "lmdb_train", videos)
+    write_lmdb(work / "lmdb_train_cache", {
+        f"{i:010}".encode("ascii"): serialize(r)
+        for i, r in enumerate(cache)})
+    _line("data-write", videos=len(videos), windows=len(cache),
+          seconds=f"{time.perf_counter() - t:.2f}", card=card)
+    src_mb = _read_back(work / "lmdb_train", videos, card)
+    cache_mb = _read_back(work / "lmdb_train_cache", cache, card)
+
+    # imports (host only: no launch)
+    _reset_counts()
+    for fmt, src, dst, mb in (
+            ("source", "lmdb_train", "clips", src_mb),
+            ("cache", "lmdb_train_cache", "samples", cache_mb)):
+        t = time.perf_counter()
+        _cli_call(["import-lmdb", str(work / src), str(work / dst),
+                   "--format", fmt], zero)
+        s = time.perf_counter() - t
+        _line("data-import", format=fmt, seconds=f"{s:.2f}",
+              MB_per_s=f"{mb / s:.1f}", card=card)
+    words = sorted({w[0] for v in videos for c in v["clips"]
+                    for w in c["words"]})
+    rng = np.random.default_rng(13)
+    model_words = ["</s>"] + words[::2] + [f"extra{i}" for i in range(500)]
+    matrix = (rng.normal(size=(len(model_words) + FASTTEXT["bucket"],
+                               FASTTEXT["dim"])) * 0.1).astype(np.float32)
+    write_model(work / "crawl.bin", model_words, matrix,
+                bucket=FASTTEXT["bucket"], minn=FASTTEXT["minn"],
+                maxn=FASTTEXT["maxn"])
+    model = load_model(work / "crawl.bin")
+    (work / "crawl.vec").write_text(
+        f"{len(model_words)} {FASTTEXT['dim']}\n" + "".join(
+            w + " " + " ".join(f"{x:.6f}" for x in model.get_word_vector(w))
+            + "\n" for w in model_words), encoding="utf-8")
+    data = ["--train_data_path", str(work / "clips"),
+            "--test_data_path", str(work / "clips")]
+    tables = []
+    for name in ("crawl.bin", "crawl.vec"):
+        t = time.perf_counter()
+        _cli_call(["import-embeddings", str(work / name),
+                   str(work / f"{name}.npy"), "--config",
+                   str(ROOT / DATA_CONFIG), "--dim", str(FASTTEXT["dim"]),
+                   *data], zero)
+        s = time.perf_counter() - t
+        tables.append(np.load(work / f"{name}.npy"))
+        mb = (work / name).stat().st_size / 1e6
+        _line("data-embeddings", model=name, words=tables[-1].shape[0],
+              seconds=f"{s:.2f}", MB_per_s=f"{mb / s:.1f}", card=card)
+    # the words both models hold get the same row (the .vec's 6 digits)
+    held = np.abs(tables[0] - tables[1]).max(axis=1) < 1e-5
+    if not (tables[0].shape == tables[1].shape and held.sum() > len(words) / 3
+            and np.isfinite(tables[0]).all()):
+        raise AssertionError("the aligned fastText tables disagree")
+
+    # training on the imported data at full width, bf16
+    counts = {}
+    train_cfg, _, _, train_s, val_s = cli._prepare(parse_cli(
+        ["--config", str(ROOT / DATA_CONFIG), *data]))
+    B = cfg.batch_size
+    argv = ["train", "--config", str(ROOT / DATA_CONFIG), *data,
+            "--wordembed_path", str(work / "crawl.bin"), "--epochs", "1",
+            "--loss_warmup", "0", "--eval_net_path", "", "--random_seed",
+            "0", "--model_save_path", str(work / "out_clips")]
+    counts["data:train-imported-clips"], out = _data_train(
+        "imported_clips", argv, len(train_s) // B, len(val_s) // B, False,
+        card, cfg)
+    samples = load_imported_samples(work / "samples")[0]
+    argv = ["train", "--config", str(ROOT / DATA_CONFIG),
+            "--train_data_path", str(work / "samples"),
+            "--test_data_path", str(work / "samples"),
+            "--wordembed_path", str(work / "crawl.vec"), "--epochs", "1",
+            "--loss_warmup", "-1", "--eval_net_path", "", "--random_seed",
+            "0", "--model_save_path", str(work / "out_cache")]
+    counts["data:train-imported-samples"], _ = _data_train(
+        "imported_samples", argv, len(samples) // B, len(samples) // B, True,
+        card, cfg)
+    del train_cfg, train_s, val_s, samples
+    _hierarchy_checks(cfg, B)
+    rc = cli.main(["compare-trajectory", str(out / "history.jsonl"),
+                   "--ref", "ted_expressive_new", "--json",
+                   str(work / "report.json")])
+    report = json.loads((work / "report.json").read_text())
+    verdicts = {k: e["verdict"] for k, e in report["metrics"].items()}
+    ok = (rc in (0, 1) and report["ref_name"] == "ted_expressive_new"
+          and set(verdicts) == {"frechet", "joint_mae", "diversity",
+                                "feat_dist", "loss"}
+          and set(verdicts.values()) <= {"BEATS", "WITHIN_NOISE", "BEHIND",
+                                         "MISSING", "INSUFFICIENT_REF"}
+          and len(load_history_jsonl(out / "history.jsonl").val) == 2)
+    _line("data-trajectory", rc=rc, **verdicts, ok=ok)
+    if not ok:
+        raise AssertionError("compare-trajectory gave a malformed report")
+
+    # the H36M gesture autoencoder (no kernel: its step has no GRU)
+    rng = np.random.default_rng(14)
+    positions = {s: {"Walking": rng.normal(size=(n, 32, 3)).astype(
+        np.float32)} for s, n in H36M_FRAMES.items()}
+    np.savez(work / "h36m.npz", positions_3d=np.array(positions,
+                                                      dtype=object))
+    _reset_counts()
+    t = time.perf_counter()
+    _cli_call(["train", "--config", str(ROOT / "configs" /
+                                       "gesture_autoencoder.yaml"),
+               "--train_data_path", str(work / "h36m.npz"), "--epochs", "1",
+               "--eval_net_path", "", "--model_save_path",
+               str(work / "out_h36m")], zero)
+    saved = json.loads((work / "out_h36m" / "checkpoint_final" /
+                        "config.json").read_text())["config"]
+    rows = (work / "out_h36m" / "history.jsonl").read_text().splitlines()
+    ok = saved["embed_pose_diff_loss"] is True and all(
+        np.isfinite(json.loads(r)["loss"]) for r in rows)
+    _line("data-h36m", seconds=f"{time.perf_counter() - t:.1f}",
+          val_rows=len(rows), embed_pose_diff_loss=saved[
+              "embed_pose_diff_loss"], ok=ok, card=card)
+    if not ok:
+        raise AssertionError("the H36M autoencoder run failed its checks")
+    counts["data:h36m"] = _read_counts()
+
+    # doctor on the card: its tiny GAN step's launches as the dataflow's
+    doctor_cfg = Config(**cli.DOCTOR_CONFIG)
+    want = _expected_counts(doctor_cfg, True)
+    if doctor_cfg.z_type not in ("speaker", "random"):
+        # no speaker z: no diversity term, so no diversity cascade
+        want["b1"] -= doctor_cfg.skeleton.n_levels * doctor_cfg.n_layers
+    _reset_counts()
+    printed = _cli_call(["doctor"], want)
+    counts["data:doctor"] = _read_counts()
+    _hierarchy_checks(doctor_cfg, cli.DOCTOR_BATCH)
+    name = torch.cuda.get_device_name(0)
+    ok = printed.strip().splitlines()[-1] == "OK" and name in printed
+    _line("data-doctor", ok=ok, last_line=printed.strip().splitlines()[-1])
+    for ln in printed.strip().splitlines():
+        print("  doctor:", ln, flush=True)
+    if not ok:
+        raise AssertionError("doctor failed on the card")
+    _line("data-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: v["b1"] for k, v in counts.items()}, card=card)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3268,13 +3678,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         baselines.update(_multi_device(Path(tmp)))
 
+    # phase 12: the host data path (lmdb stores, imports, fastText, cli
+    # train on imported data, trajectory, H36M, doctor)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        baselines.update(_data_path(Path(tmp), smi))
+
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
         f"training:{config}": run[k] for config, run in runs.items()},
         "training:cli": cli_counts[k], **{
             path: n if k == "b1" else 0 for path, n in serve_paths.items()},
         **{path: c[k] for path, c in baselines.items()}}
-    # phases 9, 10 and 11
+    # phases 9, 10, 11 and 12
     phase9 = lambda k: sum(c[k] for c in baselines.values())
     entries = [{
         "name": "gru_recurrence", "route": "cuda",

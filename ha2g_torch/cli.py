@@ -15,6 +15,17 @@
   python -m ha2g_torch.cli import-checkpoint REFERENCE.bin OUT_DIR
   python -m ha2g_torch.cli export-checkpoint CHECKPOINT OUT.bin
   python -m ha2g_torch.cli import-evalnet REFERENCE.bin OUT_DIR
+  python -m ha2g_torch.cli import-lmdb SRC_LMDB DST [--format source|cache]
+      [--limit N] [--n_poses N] [--fps F] [--max_words N]
+      [--remove_word_timing]
+  python -m ha2g_torch.cli import-embeddings MODEL.bin|.vec OUT.npy
+      --config CONFIG [--dim D] [--field value ...]
+  python -m ha2g_torch.cli motion-stats CLIPS [--dataset NAME] [--fps F]
+  python -m ha2g_torch.cli angle-stats --config CONFIG [--field value ...]
+  python -m ha2g_torch.cli parse-reference-log LOG [--out JSON]
+  python -m ha2g_torch.cli compare-trajectory HISTORY.jsonl [--ref NAME|LOG]
+      [--keys k,...] [--json OUT]
+  python -m ha2g_torch.cli doctor [--device cuda|cpu]
 
 A CHECKPOINT is a directory written by the port (``state.pt``) or by the
 JAX package (``state.msgpack``): synthesize, eval, from-text, serve and
@@ -34,15 +45,27 @@ their window loop.  Live streams (``serve``) drive spectrogram-windowed
 models (hierarchy, speech2gesture).  ``from-text`` needs ``--wav`` (16 kHz mono) and
 spreads the words evenly over it (no TTS, no forced alignment).
 
-Data paths in a config are a clip-storage directory (data/storage.py) or
+Data paths in a config are a clip-storage directory (data/storage.py),
+a directory of windowed samples (``samples.npz``, from ``import-lmdb
+--format cache``), a Human3.6M ``.npz`` (``positions_3d``; the
+gesture_autoencoder's windows, with ``embed_pose_diff_loss`` set), or
 "synthetic" / "none" / empty, a built-in synthetic set; any other path
-that does not exist raises, as does a named ``wordembed_path``.
+that does not exist raises, as does a named ``wordembed_path`` (a
+fastText ``.bin``, text vectors ``.vec`` / ``.txt``, or a table aligned to
+the vocabulary ``.npy``).  ``import-lmdb`` reads the reference's lmdb
+stores (a source store into clip storage, a cache store into windowed
+samples) with the port's own lmdb reader and pyarrow-0.14 codec;
+``import-embeddings`` aligns a fastText model to a config's vocabulary.
 ``eval_net_path`` names an FGD embedder: a directory saved by
 ``checkpoint.save_embedder`` or ``import-evalnet``, or the
 ``checkpoint_best`` of a gesture_autoencoder run (the port's or the JAX
 package's); without one the trainer selects checkpoints by the
-validation loss.  Every command runs on CUDA unless ``--device cpu``
-is given; without CUDA and without it, the commands raise.
+validation loss.  The importers, the statistics and the trajectory
+tools run on the host alone; every other command runs on CUDA unless
+``--device cpu`` is given, and without CUDA and without it, raises.
+``compare-trajectory`` exits 1 when a metric is BEHIND or the reference
+too short (INSUFFICIENT_REF); ``doctor`` exits 0 only when the device, the
+mel front-end and a tiny GAN step (kernels B1-B4 on the card) all hold.
 """
 
 from __future__ import annotations
@@ -101,23 +124,86 @@ def _load_split(path: Optional[str], cfg, seed: int):
                            n_speakers=6, seed=seed)
 
 
+def _h36m_samples(cfg, is_train: bool):
+    """Human3.6M windows as WindowedSamples with zero text and audio (the
+    gesture autoencoder reads ``target`` alone; reference
+    train_feature_extractor.py:110-131)."""
+    from ha2g_torch.data.dataset import (WindowedSamples,
+                                         spectrogram_length_for)
+    from ha2g_torch.data.h36m import h36m_windows
+    targets = h36m_windows(cfg.train_data_path, cfg.mean_dir_vec_array,
+                           is_train=is_train, n_poses=cfg.n_poses)
+    n, fps = targets.shape[0], cfg.motion_resampling_framerate
+    audio_len = int(round(cfg.n_poses / fps * 16000))
+    z = np.zeros
+    return WindowedSamples(
+        text=z((n, cfg.n_poses), np.int32),
+        word_seq=z((n, 2), np.int32), word_lengths=np.full(n, 2, np.int32),
+        pose=z((n, cfg.n_poses, 30), np.float32), target=targets,
+        audio=z((n, audio_len), np.float32),
+        spec=z((n, 128, spectrogram_length_for(cfg.n_poses, fps)),
+               np.float32), vids=z((n,), np.int32))
+
+
+def _word_vectors(cfg, lang) -> None:
+    if cfg.wordembed_path:     # a missing file raises
+        lang.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
+    else:
+        lang.random_word_vectors(cfg.wordembed_dim)
+
+
 def _prepare(cfg, lang=None, speaker=None):
-    """Load the train and eval clips, build the vocabularies (or take the
-    given ones, a checkpoint's), window the clips into samples.
+    """Load the train and eval data, build the vocabularies (or take the
+    given ones, a checkpoint's), window the clips into samples.  The data:
+    a Human3.6M ``.npz``, a directory of imported samples, or clips.
     -> (cfg, lang, speaker, train samples, val samples)."""
     from ha2g_torch.data.dataset import window_clips
+    from ha2g_torch.data.lmdb_import import (has_imported_samples,
+                                             load_imported_samples)
     from ha2g_torch.data.synthetic import default_mean_dir_vec
     from ha2g_torch.data.vocab import Vocab, build_vocab
+
+    if cfg.train_data_path.endswith(".npz"):
+        # the H36M feature extractor (train_feature_extractor.py): its
+        # step adds the pose-difference L1 term (:68-71)
+        cfg = cfg.replace(embed_pose_diff_loss=True)
+        if lang is None:
+            lang = Vocab("words")
+            lang.random_word_vectors(cfg.wordembed_dim)
+        if speaker is None:
+            speaker = Vocab("vid", insert_default_tokens=False)
+        return (cfg, lang, speaker, _h36m_samples(cfg, True),
+                _h36m_samples(cfg, False))
+
+    if has_imported_samples(cfg.train_data_path):
+        # windows from `import-lmdb --format cache`
+        train_s, own_lang, own_speaker = load_imported_samples(
+            cfg.train_data_path)
+        val_path = cfg.test_data_path or cfg.val_data_path
+        if has_imported_samples(val_path):
+            val_s = load_imported_samples(val_path)[0]
+        else:
+            logging.warning(
+                "no imported validation samples found (%s): validating on "
+                "the TRAINING set — per-epoch metrics and best-checkpoint "
+                "selection will be optimistic; set test_data_path/"
+                "val_data_path to an imported split", val_path or "<unset>")
+            val_s = train_s
+        if lang is None:
+            lang = own_lang
+            _word_vectors(cfg, lang)
+        if speaker is None:
+            speaker = own_speaker
+        logging.info(f"imported samples: train {len(train_s)}, "
+                     f"val {len(val_s)}, vocab {lang.n_words} words")
+        return cfg, lang, speaker, train_s, val_s
 
     train_clips = _load_split(cfg.train_data_path, cfg, 0)
     # the reference validates on the test split (train.py:652-724)
     val_clips = _load_split(cfg.test_data_path or cfg.val_data_path, cfg, 1)
     if lang is None:
         lang = build_vocab("words", [train_clips, val_clips])
-        if cfg.wordembed_path:     # a missing file raises
-            lang.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
-        else:
-            lang.random_word_vectors(cfg.wordembed_dim)
+        _word_vectors(cfg, lang)
     if speaker is None:
         speaker = Vocab("vid", insert_default_tokens=False)
         for c in train_clips + val_clips:
@@ -433,11 +519,275 @@ def cmd_import_evalnet(argv: list[str]) -> int:
     return 0
 
 
+def cmd_import_lmdb(argv: list[str]) -> int:
+    """A reference lmdb -> clip storage (``--format source``, one {vid,
+    clips} record a video) or windowed samples and vocabularies
+    (``--format cache``, the reference's per-window ``lmdb_*_cache``).
+    Host only."""
+    from ha2g_torch.data.lmdb_import import import_cache_lmdb, import_lmdb
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli import-lmdb")
+    p.add_argument("src")
+    p.add_argument("dst")
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--format", choices=("source", "cache"), default="source")
+    p.add_argument("--n_poses", type=int, default=34)
+    p.add_argument("--fps", type=int, default=15)
+    p.add_argument("--max_words", type=int, default=32,
+                   help="cache: the word sequence's cut, SOS and EOS "
+                        "included")
+    p.add_argument("--remove_word_timing", action="store_true",
+                   help="cache: spread each window's words evenly over its "
+                        "frames")
+    a = p.parse_args(argv)
+    if a.format == "cache":
+        n = import_cache_lmdb(a.src, a.dst, n_poses=a.n_poses, fps=a.fps,
+                              max_words=a.max_words,
+                              remove_word_timing=a.remove_word_timing,
+                              limit=a.limit)
+        print(f"imported {n} windowed samples -> {a.dst}")
+    else:
+        if a.max_words != 32 or a.remove_word_timing:
+            p.error("--max_words and --remove_word_timing apply to "
+                    "--format cache")
+        n = import_lmdb(a.src, a.dst, a.limit)
+        print(f"imported {n} clips -> {a.dst}")
+    return 0
+
+
+def cmd_import_embeddings(argv: list[str]) -> int:
+    """A fastText ``.bin`` or text ``.vec`` aligned to the vocabulary of a
+    config's clips -> the (n_words, dim) ``.npy`` table that
+    ``wordembed_path`` can name (reference vocab.py:70-84 does this at
+    every training start).  Host only."""
+    from ha2g_torch.config import parse_cli
+    from ha2g_torch.data.vocab import build_vocab
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli import-embeddings")
+    p.add_argument("model", help="fastText .bin or .vec/.txt text vectors")
+    p.add_argument("out", help="output .npy path")
+    p.add_argument("--config", required=True,
+                   help="training config whose clips define the vocabulary")
+    p.add_argument("--dim", type=int, default=300)
+    a, rest = p.parse_known_args(argv)
+    cfg = parse_cli(["--config", a.config] + rest)
+    lang = build_vocab("words", [
+        _load_split(cfg.train_data_path, cfg, 0),
+        _load_split(cfg.test_data_path or cfg.val_data_path, cfg, 1)])
+    lang.load_word_vectors(a.model, a.dim)
+    np.save(a.out, lang.word_embedding_weights)
+    print(f"aligned {lang.n_words} words x {a.dim} -> {a.out}")
+    return 0
+
+
+def _fmt_floats(arr, per_line=6, indent="  "):
+    """A YAML flow sequence at the reference's 7 digits
+    (calculate_motion_stats.py:57)."""
+    vals = [f"{float(v):.7g}" for v in np.asarray(arr).reshape(-1)]
+    lines = [", ".join(vals[i:i + per_line])
+             for i in range(0, len(vals), per_line)]
+    return "[\n" + indent + (",\n" + indent).join(lines) + "]"
+
+
+def cmd_motion_stats(argv: list[str]) -> int:
+    """mean_pose / mean_dir_vec / mean bone lengths of a clip store as a
+    block for a YAML config (calculate_motion_stats.py:12-51).  Host
+    only."""
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.storage import load_clips
+    from ha2g_torch.tools import motion_stats
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli motion-stats")
+    p.add_argument("clips", help="clip-storage directory (a train split)")
+    p.add_argument("--dataset", default="ted_expressive",
+                   choices=("ted_gesture", "ted_expressive"))
+    p.add_argument("--fps", type=int, default=15)
+    a = p.parse_args(argv)
+
+    spec = Config(model="hierarchy", dataset=a.dataset).skeleton
+    clips = load_clips(a.clips)
+    stats = motion_stats(clips, spec, fps=a.fps)
+    total_s = sum(c["end_time"] - c["start_time"] for c in clips)
+    print(f"# {len(clips)} clips, {stats['n_frames']} frames, "
+          f"{total_s / 3600.0:.1f} h of valid clips")
+    print("mean_pose:", _fmt_floats(stats["mean_pose"]))
+    print("mean_dir_vec:", _fmt_floats(stats["mean_dir_vec"]))
+    print("# mean bone lengths (skeleton.py bone table):",
+          [round(float(v), 4) for v in stats["mean_bone_lengths"]])
+    return 0
+
+
+def cmd_angle_stats(argv: list[str]) -> int:
+    """Each angle pair's mean / variance / mean frame-to-frame change over
+    a config's windowed training targets, the physical prior's constants
+    (calculate_angle_stats.py:39-197).  Host only."""
+    from ha2g_torch.config import parse_cli
+    from ha2g_torch.tools import angle_stats
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli angle-stats")
+    p.add_argument("--config", required=True,
+                   help="training config (data paths, windowing, "
+                        "mean_dir_vec)")
+    a, rest = p.parse_known_args(argv)
+    cfg, _, _, train_s, _ = _prepare(parse_cli(["--config", a.config]
+                                               + rest))
+    stats = angle_stats(np.asarray(train_s.target), cfg.mean_dir_vec_array,
+                        cfg.skeleton)
+    pairs = cfg.skeleton.angle_prior.pairs
+    print(f"# {len(train_s)} windows x {cfg.n_poses} frames, "
+          f"{len(pairs)} angle pairs")
+    print("angle_pairs:", [list(q) for q in pairs])
+    print("avg_angle:", _fmt_floats(stats["avg_angle"]))
+    print("var_angle:", _fmt_floats(stats["var_angle"]))
+    print("change_angle:", _fmt_floats(stats["change_angle"]))
+    return 0
+
+
+def cmd_parse_reference_log(argv: list[str]) -> int:
+    """A reference training log -> a baseline JSON for
+    ``compare-trajectory`` (eval/trajectory.py).  Host only."""
+    import json
+    from ha2g_torch.eval.trajectory import parse_reference_log
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli parse-reference-log")
+    p.add_argument("log_path")
+    p.add_argument("--out", default=None, help="output JSON (default: "
+                   "ha2g_torch/baselines/<log stem>.json)")
+    a = p.parse_args(argv)
+    traj = parse_reference_log(a.log_path)
+    out = Path(a.out) if a.out else (
+        Path(__file__).resolve().parent / "baselines" / f"{traj.name}.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(traj.to_json(), indent=1))
+    print(f"parsed {len(traj.val)} val epochs, {len(traj.train)} train lines"
+          f" -> {out}")
+    print("best:", dict(traj.best))
+    return 0
+
+
+def cmd_compare_trajectory(argv: list[str]) -> int:
+    """A run's history.jsonl against a reference trajectory (a baseline's
+    name or a log's path): a verdict a metric; exit 1 when one is BEHIND
+    or INSUFFICIENT_REF.  Host only."""
+    import json
+    from ha2g_torch.eval import trajectory as tj
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli compare-trajectory")
+    p.add_argument("history", help="history.jsonl of a Trainer run")
+    p.add_argument("--ref", default="ted_gesture_new",
+                   help="baseline name or reference log path")
+    p.add_argument("--keys",
+                   default="frechet,joint_mae,diversity,feat_dist,loss")
+    p.add_argument("--json", dest="json_out", default=None,
+                   help="also write the report as JSON")
+    a = p.parse_args(argv)
+    ref = (tj.parse_reference_log(a.ref) if Path(a.ref).exists()
+           else tj.load_baseline(a.ref))
+    report = tj.compare_trajectories(ref, tj.load_history_jsonl(a.history),
+                                     keys=tuple(a.keys.split(",")))
+    print(tj.format_report(report))
+    if a.json_out:
+        Path(a.json_out).write_text(json.dumps(report, indent=1))
+    bad = [k for k, e in report["metrics"].items()
+           if e["verdict"] in ("BEHIND", "INSUFFICIENT_REF")]
+    return 1 if bad else 0
+
+
+DOCTOR_MEL_DB = 1e-2     # the JAX doctor's bound on the mel front-end
+# the doctor's tiny hierarchy (3 levels at pose 27, one GRU layer of 16)
+# and its batch
+DOCTOR_CONFIG = dict(model="hierarchy", pose_dim=27, hidden_size=16,
+                     n_layers=1)
+DOCTOR_BATCH = 2
+
+
+def cmd_doctor(argv: list[str]) -> int:
+    """Self-check of an install on its device: the device and its power
+    limit, the mel front-end on the device against the numpy oracle, and
+    a tiny hierarchy GAN step (pose 27, hidden 16, one GRU layer, batch 2)
+    whose kernels (B1, its backward, B2-B4) must launch on a card.  Exit 0
+    only if all of it holds."""
+    import subprocess
+    import time
+
+    import torch
+
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.synthetic import default_mean_dir_vec
+    from ha2g_torch.ops import contrastive, gru_kernel
+    from ha2g_torch.ops.mel import batched_log_mel, log_mel_np
+    from ha2g_torch.skeleton import TED_GESTURE
+    from ha2g_torch.train.hierarchy import HierarchySystem
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli doctor")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    device = _device(a.device)
+    ok = True
+    if device.type == "cuda":
+        try:        # the card's name and power limit
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]
+        except (OSError, subprocess.CalledProcessError, IndexError) as err:
+            smi, ok = f"FAIL: {err}", False
+        print(f"device: {torch.cuda.get_device_name(device)} "
+              f"(count {torch.cuda.device_count()}; nvidia-smi: {smi})")
+    else:
+        print("device: cpu (the kernels' plain versions)")
+
+    rng = np.random.default_rng(0)
+    y = (rng.normal(size=16000) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    mel = batched_log_mel(torch.from_numpy(y)[None].to(device))[0].cpu()
+    err = float(np.abs(mel.numpy() - log_mel_np(y)).max())
+    print(f"mel front-end: {tuple(mel.shape)}, max |device - numpy oracle| "
+          f"= {err:.2e} dB ({time.perf_counter() - t0:.1f}s)")
+    ok = ok and err < DOCTOR_MEL_DB
+
+    cfg = Config(**DOCTOR_CONFIG, mean_dir_vec=[
+        float(v) for v in default_mean_dir_vec(TED_GESTURE)])
+    t0 = time.perf_counter()
+    system = HierarchySystem(cfg, n_words=8, n_speakers=2, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    B = DOCTOR_BATCH
+    batch = {"text": rng.integers(0, 8, (B, cfg.n_poses)),
+             "spec": rng.normal(size=(B, 128, 70)).astype(np.float32),
+             "target": (rng.normal(size=(B, cfg.n_poses, 27)) * 0.2)
+             .astype(np.float32),
+             "vids": np.arange(B) % 2}
+    counters = {"b1": gru_kernel.gru_recurrence,
+                "b1_bwd": gru_kernel.gru_backward_loop,
+                "b2": contrastive.contrastive_fwd,
+                "b3": contrastive.contrastive_bwd_da,
+                "b4": contrastive.contrastive_bwd_db}
+    before = {k: fn.launches for k, fn in counters.items()}
+    metrics = system.train_step(batch, True, torch.Generator(
+        device=device).manual_seed(1))
+    loss = float(metrics["loss"])
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    print(f"tiny hierarchy GAN step: loss {loss:.3f}, kernel launches "
+          f"{launches} ({time.perf_counter() - t0:.1f}s)")
+    ok = ok and np.isfinite(loss)
+    if device.type == "cuda":
+        ok = ok and all(launches.values())
+    print("OK" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 COMMANDS = {"train": cmd_train, "eval": cmd_eval,
             "synthesize": cmd_synthesize, "from-text": cmd_from_text,
             "serve": cmd_serve, "import-checkpoint": cmd_import_checkpoint,
             "export-checkpoint": cmd_export_checkpoint,
-            "import-evalnet": cmd_import_evalnet}
+            "import-evalnet": cmd_import_evalnet,
+            "import-lmdb": cmd_import_lmdb,
+            "import-embeddings": cmd_import_embeddings,
+            "motion-stats": cmd_motion_stats,
+            "angle-stats": cmd_angle_stats,
+            "parse-reference-log": cmd_parse_reference_log,
+            "compare-trajectory": cmd_compare_trajectory,
+            "doctor": cmd_doctor}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -103,6 +103,27 @@ def _pose_to_dir_vec_np(pose: np.ndarray, spec: SkeletonSpec) -> np.ndarray:
         return np.where(norm > 1e-12, d / np.maximum(norm, 1e-12), d)
 
 
+def frame_word_indices(words, start: float, frame_duration: float,
+                       n_poses: int, lang: Vocab,
+                       remove_word_timing: bool = False) -> np.ndarray:
+    """A window's words as vocabulary indices on its n_poses frames
+    (lmdb_data_loader.py:116-141): each word on the frame where it starts,
+    or with ``remove_word_timing`` the words that start inside the window
+    spread evenly over it."""
+    ext = np.zeros(n_poses, np.int32)
+    frames = [int(np.floor((w[1] - start) / frame_duration)) for w in words]
+    if remove_word_timing:
+        inside = [w for w, f in zip(words, frames) if f < n_poses]
+        space = int(n_poses / (len(inside) + 1))
+        for k, w in enumerate(inside):
+            ext[(k + 1) * space] = lang.get_word_index(w[0])
+    else:
+        for w, f in zip(words, frames):
+            if f < n_poses:
+                ext[max(f, 0)] = lang.get_word_index(w[0])
+    return ext
+
+
 def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
                  lang: Vocab, speaker: Vocab, mean_pose: np.ndarray,
                  mean_dir_vec: np.ndarray, n_poses: int = 34,
@@ -185,14 +206,9 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
             dvec = _pose_to_dir_vec_np(sample_skel_c, spec)
             target = dvec.reshape(n_poses, -1) - mean_dir_vec.reshape(1, -1)
 
-            # frame-aligned word indices (lmdb_data_loader.py:116-141)
-            frame_duration = (sample_end_time - sub_start) / n_poses
-            ext = np.zeros(n_poses, dtype=np.int32)
-            for w in words:
-                idx = max(0, int(np.floor((w[1] - sub_start)
-                                          / frame_duration)))
-                if idx < n_poses:
-                    ext[idx] = lang.get_word_index(w[0])
+            ext = frame_word_indices(words, sub_start,
+                                     (sample_end_time - sub_start) / n_poses,
+                                     n_poses, lang)
 
             # SOS/EOS word sequence (lmdb_data_loader.py:143-150)
             seq = [SOS_TOKEN] + [lang.get_word_index(w[0]) for w in words

@@ -16,6 +16,8 @@ from typing import Optional
 
 import numpy as np
 
+from ha2g_torch.data.fasttext_bin import load_model, load_vec_text
+
 PAD_TOKEN = 0
 SOS_TOKEN = 1
 EOS_TOKEN = 2
@@ -76,16 +78,39 @@ class Vocab:
                              f"vocabulary needs ({self.n_words}, {embed_dim})")
         self.word_embedding_weights = weights
 
-    def load_word_vectors(self, path, embed_dim: int = 300):
-        """A pre-aligned ``.npy`` table.  fastText ``.bin`` / ``.vec`` files
-        are not read by the port yet: align them to the vocabulary with the
-        JAX package's ``cli import-embeddings`` first."""
+    def load_word_vectors(self, path, embed_dim: int = 300, seed: int = 0):
+        """Pretrained vectors with the reference's semantics
+        (vocab.py:70-84): the whole table drawn N(0, 1/sqrt(dim)) from
+        ``default_rng(seed)``, then each vocabulary word's model vector
+        written over its row.  By extension: ``.bin`` a fastText model
+        (subword n-grams, so a word outside the model's vocabulary gets a
+        vector too, as ``fasttext``'s get_word_vector gives it), ``.vec``
+        / ``.txt`` text vectors (a word they lack keeps its random row),
+        ``.npy`` a table aligned to this vocabulary.  A missing file
+        raises."""
         path = Path(path)
-        if path.suffix != ".npy":
-            raise NotImplementedError(
-                f"{path}: the port reads aligned .npy word vectors only; "
-                "fastText .bin / .vec reading comes with its data path")
-        self.load_word_vectors_npy(path, embed_dim)
+        if path.suffix == ".npy":
+            return self.load_word_vectors_npy(path, embed_dim)
+        if not path.is_file():
+            raise FileNotFoundError(f"no word vectors at {path}")
+        rng = np.random.default_rng(seed)
+        weights = rng.normal(0, 1 / np.sqrt(embed_dim),
+                             (self.n_words, embed_dim)).astype(np.float32)
+        if path.suffix == ".bin":
+            model = load_model(path)
+            if model.get_dimension() != embed_dim:
+                raise ValueError(f"{path} has dim {model.get_dimension()}, "
+                                 f"not {embed_dim}")
+            for word, idx in self.word2index.items():
+                weights[idx] = model.get_word_vector(word)
+        else:
+            vectors, dim = load_vec_text(path)
+            if dim != embed_dim:
+                raise ValueError(f"{path} has dim {dim}, not {embed_dim}")
+            for word, idx in self.word2index.items():
+                if word in vectors:
+                    weights[idx] = vectors[word]
+        self.word_embedding_weights = weights
 
     def random_word_vectors(self, embed_dim: int = 300, seed: int = 0):
         rng = np.random.default_rng(seed)

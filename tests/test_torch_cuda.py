@@ -441,3 +441,85 @@ def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):
               for out in ("single", "ranks")]
     assert abs(losses[1] - losses[0]) <= 5e-3 * max(1.0, abs(losses[0])), \
         losses
+
+
+def _cli(argv):
+    import contextlib
+    import io
+
+    from ha2g_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def test_doctor_on_the_card(cuda):
+    """``cli doctor``: the card's name, the mel front-end within 1e-2 dB of
+    the numpy oracle, and its tiny GAN step launching B1, its backward and
+    B2-B4."""
+    counters = (K.gru_recurrence, K.gru_backward_loop, C.contrastive_fwd,
+                C.contrastive_bwd_da, C.contrastive_bwd_db)
+    before = [f.launches for f in counters]
+    rc, out = _cli(["doctor"])
+    assert rc == 0 and out.splitlines()[-1] == "OK"
+    assert torch.cuda.get_device_name(0) in out
+    assert all(f.launches > n for f, n in zip(counters, before))
+
+
+def test_import_then_train_on_imported_samples(cuda, tmp_path):
+    """The data path on the card at a narrow width: a cache lmdb in the
+    reference's bytes, ``cli import-lmdb --format cache`` (host only: no
+    launch), then ``cli train`` of a narrow bf16 hierarchy on the samples
+    with fastText vectors, GAN steps launching B1-B4."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from ha2g_torch.data.arrow_legacy import serialize
+    from ha2g_torch.data.fasttext_bin import write_model
+    from ha2g_torch.data.lmdb_mini import write_lmdb
+
+    rng = np.random.default_rng(5)
+    records = {}
+    for i in range(20):
+        words = [[f"w{rng.integers(0, 12)}", 1.0 + i + 0.25 * k,
+                  1.2 + i + 0.25 * k] for k in range(8)]
+        aux = {"vid": f"vid_{i % 3}", "start_frame_no": i * 10,
+               "end_frame_no": i * 10 + 42, "start_time": 1.0 + i,
+               "end_time": 1.0 + i + 42 / 15}
+        records[f"{i:010}".encode()] = serialize([
+            words, rng.normal(size=(42, 10, 3)).astype(np.float32),
+            (rng.normal(size=(42, 9, 3)) * 0.1).astype(np.float32),
+            (rng.normal(size=44800) * 0.1).astype(np.float32),
+            rng.normal(size=(128, 87)).astype(np.float32), aux])
+    write_lmdb(tmp_path / "cache", records)
+    words = ["</s>"] + [f"w{i}" for i in range(6)]
+    write_model(tmp_path / "vectors.bin", words, rng.normal(
+        size=(len(words) + 100, 16)).astype(np.float32), bucket=100,
+        minn=3, maxn=6)
+    launches = K.gru_recurrence.launches
+    rc, out = _cli(["import-lmdb", str(tmp_path / "cache"),
+                    str(tmp_path / "samples"), "--format", "cache"])
+    assert rc == 0 and "imported 20 windowed samples" in out
+    assert K.gru_recurrence.launches == launches
+    counters = (K.gru_recurrence, K.gru_backward_loop, C.contrastive_fwd,
+                C.contrastive_bwd_da, C.contrastive_bwd_db)
+    before = [f.launches for f in counters]
+    config = Path(__file__).resolve().parent.parent / "configs" / \
+        "hierarchy.yaml"
+    rc, _ = _cli(["train", "--config", str(config), "--hidden_size", "32",
+                  "--n_layers", "2", "--batch_size", "8", "--epochs", "1",
+                  "--loss_warmup", "-1", "--wordembed_dim", "16",
+                  "--wordembed_path", str(tmp_path / "vectors.bin"),
+                  "--train_data_path", str(tmp_path / "samples"),
+                  "--test_data_path", str(tmp_path / "samples"),
+                  "--eval_net_path", "",
+                  "--model_save_path", str(tmp_path / "out")])
+    assert rc == 0
+    assert all(f.launches > n for f, n in zip(counters, before))
+    rows = [json.loads(ln) for ln in
+            (tmp_path / "out" / "history.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [0, 1]
+    assert all(np.isfinite(r["loss"]) for r in rows)

@@ -115,7 +115,7 @@ def test_vocab_files_cross_load(tmp_path):
                                   j.word_embedding_weights)
     np.save(tmp_path / "vec.npy", v.word_embedding_weights)
     v.load_word_vectors(tmp_path / "vec.npy", 8)
-    with pytest.raises(NotImplementedError, match="npy"):
+    with pytest.raises(FileNotFoundError, match="vec.bin"):
         v.load_word_vectors(tmp_path / "vec.bin", 8)
 
 

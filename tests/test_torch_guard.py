@@ -1,8 +1,9 @@
 """The port stands alone: no module of ha2g_torch, and not chip_smoke.py,
-imports JAX, flax, msgpack or the JAX package (checked with ast, without
-importing), and its entry points (the systems, the evaluator, the
+imports JAX, flax, msgpack, the JAX package, or what the card's machine
+lacks (pyarrow, lmdb, fasttext, PyYAML, matplotlib) (checked with ast,
+without importing), and its entry points (the systems, the evaluator, the
 trainer, the serving service, the command line) need CUDA unless the
-caller asks for the CPU."""
+caller asks for the CPU; the host-only commands need no device."""
 
 import ast
 from pathlib import Path
@@ -13,14 +14,15 @@ import torch
 import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "ha2g_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "ha2g_tpu",
+             "pyarrow", "lmdb", "fasttext", "yaml", "matplotlib"}
 # what the port may import at module level besides the standard library
 # and itself
 ALLOWED_THIRD_PARTY = {"torch", "numpy", "einops"}
 
 
-# the modules of the serving, training, evaluation, trainer and
-# checkpoint-bridge slices, which the scan must see
+# the modules of the serving, training, evaluation, trainer,
+# checkpoint-bridge and data-path slices, which the scan must see
 PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "synthesis.py", "models/common.py", "models/hierarchy.py",
                 "models/resnet_se.py", "models/tcn.py", "ops/contrastive.py",
@@ -31,7 +33,10 @@ PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "data/dataset.py", "data/loader.py", "data/storage.py",
                 "data/synthetic.py", "data/vocab.py", "train/loop.py",
                 "utils/average_meter.py", "utils/msgpack.py",
-                "reference_ckpt.py", "serve.py", "tts_align.py")
+                "reference_ckpt.py", "serve.py", "tts_align.py",
+                "data/lmdb_mini.py", "data/arrow_legacy.py",
+                "data/lmdb_import.py", "data/fasttext_bin.py", "data/h36m.py",
+                "tools.py", "eval/trajectory.py")
 
 
 def _port_files():
@@ -118,8 +123,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
                   "a.wav"], ["serve", "checkpoint"],
                  ["import-checkpoint", "a.bin", "out"],
                  ["export-checkpoint", "checkpoint", "a.bin"],
-                 ["import-evalnet", "a.bin", "out"]):
+                 ["import-evalnet", "a.bin", "out"], ["doctor"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
+    # the host-only commands touch no device: a missing input raises as
+    # such, not for the device
+    for argv in (["import-lmdb", "missing", "out"],
+                 ["motion-stats", "missing"],
+                 ["compare-trajectory", "missing.jsonl"]):
+        with pytest.raises(FileNotFoundError):
             cli.main(argv)
 
     from ha2g_torch.serve import GestureService
