@@ -167,13 +167,17 @@ B1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 4 * 2 ** -8}
 # cuDNN convolutions (TF32 off) and cuBLAS products against the CPU's,
 # through 21 conv layers and 6 levels x 4 GRU layers
 SLICE_ATOL = 1e-3
-# B1's autograd against autograd through its plain version, and B1's
-# backward kernel against its plain loop: relative L2 error of each
-# gradient.  fp32: summation order of the products.  bf16 (autograd): the
-# plain version's graph rounds every step's gradient to bf16 (2^-8
+# B1's autograd against autograd through its plain version: relative L2
+# error of each gradient.  fp32: summation order of the products.  bf16:
+# the plain version's graph rounds every step's gradient to bf16 (2^-8
 # relative) where the backward kernel keeps fp32, over 34 steps, on top of
 # one-ulp carry flips in the forward.
 B1_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# B1's backward kernel against its plain loop on the same inputs, in both
+# storage types: the loop is fp32 throughout, the kernel's product bf16
+# hi + lo (~2^-16 relative) or 3xTF32, so only that and the summation
+# order differ; a product on bf16(d_gh) alone (2^-8) fails it
+B1_BWD_REL = 1e-4
 # B2-B4 against their plain versions (random unit rows): sums of N terms
 # in another order; logz and diag relative to themselves, dA and dB
 # relative to the largest entry of the plain result
@@ -202,6 +206,7 @@ TRAIN_GRAD_FLOOR = 1e-5
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_PEAK_FLOPS = 495e12   # the tensor cores' dense TF32 rate
 # the train runs: configuration file and the gan_on of each step (a
 # warm-up step, then GAN steps); TED Gesture's batch 256 gives B2-B4 their
 # largest shipped N = 256 * 34 = 8704
@@ -286,14 +291,18 @@ B1_SHAPES = ((34, 1, 300), (34, 4, 300), (34, 8, 300), (34, 16, 300),
              (6, 16, 45), (34, 128, 300), (28, 128, 64), (32, 1, 200),
              (32, 4, 200), (32, 8, 200), (32, 128, 200), (17, 128, 200),
              (2, 128, 200), (34, 48, 300))
+# the backward also at the Gesture step's batch 256 and at 113 and 200,
+# whose last 32-row cluster in bf16 is ragged (17 and 8 rows)
 B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200), (34, 128, 300),
                  (28, 128, 64), (32, 128, 200), (17, 128, 200),
-                 (2, 128, 200), (34, 48, 300))
+                 (2, 128, 200), (34, 48, 300), (34, 256, 300),
+                 (34, 113, 300), (34, 200, 300))
 # B1's autograd against autograd through its plain version: the train
-# shapes of the hierarchy (generator and discriminator, batch 96) and of
-# the baselines (batch 128)
+# shapes of the hierarchy (generator and discriminator, batch 96; the
+# Gesture step's 256) and of the baselines (batch 128)
 B1_GRAD_SHAPES = ((34, 96, 300), (34, 96, 64), (34, 128, 300), (28, 128, 64),
-                  (32, 128, 200), (17, 128, 200), (2, 128, 200))
+                  (32, 128, 200), (17, 128, 200), (2, 128, 200),
+                  (34, 256, 300))
 
 
 def _b1_check(shapes=B1_SHAPES):
@@ -333,7 +342,7 @@ def _b1_bwd_inputs(T, B, H, dtype, seed):
 
 def _b1_bwd_check(shapes=B1_BWD_SHAPES):
     """B1's backward kernel against its plain loop on the same inputs,
-    relative L2 error of d_gx, d_gh and d_h0."""
+    relative L2 error of d_gx, d_gh and d_h0 (``B1_BWD_REL``)."""
     from ha2g_torch.ops.gru_kernel import (gru_backward_loop,
                                            gru_backward_loop_plain)
     errs = {}
@@ -345,10 +354,10 @@ def _b1_bwd_check(shapes=B1_BWD_SHAPES):
             torch.cuda.synchronize()
             rel = [_rel(g, w) for g, w in zip(got, want)]
             ok = (all(bool(torch.isfinite(g).all()) for g in got)
-                  and max(rel) <= B1_GRAD_REL[dtype])
+                  and max(rel) <= B1_BWD_REL)
             _line("b1-bwd-check", T=T, B=B, H=H, dtype=str(dtype)[6:],
                   rel_err_dgx_dgh_dh0="/".join(f"{e:.2e}" for e in rel),
-                  tol=f"{B1_GRAD_REL[dtype]:.0e}", ok=ok)
+                  tol=f"{B1_BWD_REL:.0e}", ok=ok)
             if not ok:
                 raise AssertionError(f"B1 backward kernel disagrees with its "
                                      f"plain loop at T={T} B={B} H={H} "
@@ -428,12 +437,18 @@ def _b1_grad_check():
 
 
 def _b1_backward_times(dtype, T=34, B=96, H=300):
-    """B1's backward at the train shape: the kernel (the serial loop), its
+    """B1's backward at a train shape: the kernel (the serial loop), its
     plain loop, and the whole backward call (hoisted hh, kernel, d_w_hh,
     d_b_hh), each with its bound; the library yardstick is cuDNN's
     bidirectional GRU layer, forward + backward minus forward.  The
-    kernel's arithmetic is fp32 in both storage types, so its bound takes
-    the fp32 rate: one T-wide product for the kernel, three for the call.
+    kernel's bound takes its product at the rate it runs: two bf16
+    products (d_gh split into hi + lo) at the bf16 peak in bf16 storage,
+    three TF32 products (3xTF32) at the TF32 peak in fp32, and the gate
+    math at the fp32 rate; ``kernel_bound_fp32_rate_ms`` is the same work
+    all at the fp32 rate, the bound of the earlier FFMA kernel, kept for
+    continuity.  The call's bound takes the fp32 rate (its hoisted
+    products are fp32).  waves: the kernel's clusters over those the card
+    holds at once.
     """
     from ha2g_torch.ops.gru_kernel import (cluster_plan, gru_backward_loop,
                                            gru_backward_loop_plain,
@@ -466,24 +481,56 @@ def _b1_backward_times(dtype, T=34, B=96, H=300):
     # d_gx, d_gh, d_h0 (fp32) out; ~40 elementwise operations a unit
     k_bytes = (g + 2 * H * 3 * H + n_step) * e + (g + n_step) * 4 \
         + (2 * g + 2 * B * H) * 4
-    k_bound, k_by = _bound(k_bytes, product + 40 * n_step, torch.float32)
+    k_fp32, k_fp32_by = _bound(k_bytes, product + 40 * n_step, torch.float32)
+    terms, peak = ((2, PEAK_FLOPS[torch.bfloat16]) if dtype == torch.bfloat16
+                   else (3, TF32_PEAK_FLOPS))
+    t_ops = (terms * product / peak
+             + 40 * n_step / PEAK_FLOPS[torch.float32]) * 1e3
+    t_bytes = k_bytes / H100_BYTES_PER_S * 1e3
+    k_bound = max(t_bytes, t_ops)
+    k_by = "bytes" if t_bytes >= t_ops else "operations"
     # call: xp, h0, w_hh, b_hh, outs, d_outs in; d_xp, d_h0, d_w_hh, d_b_hh
     # out, all in the storage type
     c_bytes = (2 * g + 2 * (2 * B * H + 2 * H * 3 * H + 2 * 3 * H)
                + 2 * n_step) * e
     c_bound, c_by = _bound(c_bytes, 3 * product + 40 * n_step,
                            torch.float32)
+    clusters = cluster_plan(H, B, dtype)["clusters_backward"]
+    active = max_active_clusters(B, H, dtype, backward=True)
+    waves = -(-clusters // active)
     _line("b1-backward-time", T=T, B=B, H=H, dtype=str(dtype)[6:],
           kernel_ms=f"{ms:.4f}", plain_loop_ms=f"{plain_ms:.4f}",
           kernel_bound_ms=f"{k_bound:.6f}", kernel_bound_by=k_by,
+          kernel_bound_fp32_rate_ms=f"{k_fp32:.6f}",
+          kernel_bound_fp32_rate_by=k_fp32_by,
           call_ms=f"{call_ms:.4f}", call_bound_ms=f"{c_bound:.6f}",
           call_bound_by=c_by, library_ms=f"{library_ms:.4f}",
-          library="cuDNN GRU fwd+bwd - fwd",
-          clusters=cluster_plan(H, B, dtype)["clusters"],
-          max_active_clusters=max_active_clusters(B, H, dtype, backward=True))
+          library="cuDNN GRU fwd+bwd - fwd", clusters=clusters,
+          max_active_clusters=active, waves=waves)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": k_bound,
             "bound_by": k_by, "call_ms": call_ms, "call_bound_ms": c_bound,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "waves": waves}
+
+
+def _backward_spills(logs) -> int:
+    """ptxas's spill bytes (stores + loads) summed over the instantiations
+    of B1's backward kernel in the build logs; raises if any spills."""
+    import re
+    fn, seen, spilled = None, 0, 0
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and fn and "gru_backward_kernel" in fn:
+                seen += 1
+                spilled += int(m.group(1)) + int(m.group(2))
+    _line("b1-bwd-ptxas", instantiations=seen, spill_bytes=spilled)
+    if spilled:
+        raise AssertionError(f"B1's backward kernel spills {spilled} bytes")
+    return spilled
 
 
 # ---------------------------------------------------------------------------
@@ -617,12 +664,14 @@ def _kernel_device_ms(fn, pattern, n=20):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     times = [e.device_time_total / 1e3 for e in prof.events()
              if e.device_type == DeviceType.CUDA and pattern in e.name]
     # the profiler may miss the first launches of its window
+    # (PROFILE_PAD_S)
     if len(times) < n // 2:
         raise AssertionError(f"profiled {len(times)} launches of {pattern} "
                              f"of {n}")
@@ -749,15 +798,15 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
 
     With ``want`` ({kernel: launches the dataflow gives}), a profile whose
     launches differ from it is printed and the call profiled again, up to
-    ``tries`` profiles in all; it raises if every one differs.  The tracer
-    has dropped a kernel's record (on an H100, one of the seq2seq step's
-    two B1 launches, late in a long run; ``PROFILE_PAD_S``), so one
-    profile short of the dataflow says nothing of the program, while a
-    launch the dataflow counts that never reaches the card is missing from
-    every profile."""
+    ``tries`` profiles in all; it raises if every one differs.  Each new
+    profile pads the call with ten times the host time of the last, since
+    the tracer drops device records from the window's start
+    (``PROFILE_PAD_S``).  A launch the dataflow counts that never reaches
+    the card is missing from every profile."""
+    pad = PROFILE_PAD_S
     for attempt in range(1, tries + 1):
         window = {}
-        per_name = _device_kernels(fn, window)
+        per_name = _device_kernels(fn, window, pad)
         if not per_name:
             _line("profile", request=name, device_busy_ms="not measured",
                   reason="the profiler recorded no device events")
@@ -767,9 +816,10 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
                 for k in kernels}
         if want is None or all(seen[k][0] == want[k] for k in kernels):
             break
-        _line("profile-short", request=name, attempt=attempt,
+        _line("profile-short", request=name, attempt=attempt, pad_s=pad,
               **{f"{k}_kernels": f"{seen[k][0]}/{want[k]}" for k in kernels},
               **window)
+        pad *= 10
     else:
         raise AssertionError(f"every one of {tries} profiles of {name} "
                              f"shows other launches than the dataflow's "
@@ -782,7 +832,8 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
     _line("profile", request=name, e2e_ms=f"{e2e_ms:.2f}",
           device_busy_ms=f"{busy:.2f}",
           idle_share=f"{1 - busy / e2e_ms:.3f}",
-          device_ops=sum(n for _, n in per_name.values()), **fields)
+          device_ops=sum(n for _, n in per_name.values()), pad_s=pad,
+          **fields)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     for k, (ms, n) in top:
         _line("profile-top", request=name, ms=f"{ms:.2f}", count=n,
@@ -791,29 +842,31 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
 
 
 # host time at each end of a profiled call, inside the profiler's window.
-# Late in a long run (~400 s) one of the seq2seq step's two B1 launches,
-# made within a few ms of the window's start, was missing from three
-# profiles in a row, while a fresh process recorded both in 12 of 12.  A
-# device timestamp outside the capture window would explain it (the card's
-# clock drifting from the host's), but that is not shown: a short profile
-# prints the window's host and device ends so it can be.  The padding
-# holds no device work.
+# On an H100 the tracer drops the records of kernels launched in the
+# window's first milliseconds, more of them the older the process:
+# twenty kernels launched back to back at a window's start, with no pad,
+# were all kept early in a process and none after a few minutes, while
+# this pad kept all of them.  Late in a whole run of this script (~400 s)
+# the seq2seq step's first B1 launch, a few ms into its call, went missing
+# from three profiles in a row even with this pad; a fresh process never
+# missed it.  So a short profile is taken again with a wider pad.
 PROFILE_PAD_S = 0.05
 
 
-def _device_kernels(fn, window=None):
-    """One call of fn under torch.profiler -> {kernel name: (device ms,
-    launches)}.  A dict passed as ``window`` gets the first start and last
-    end, in the profiler's microseconds, of its host and device events."""
+def _device_kernels(fn, window=None, pad=PROFILE_PAD_S):
+    """One call of fn under torch.profiler, padded with ``pad`` seconds of
+    host time at each end -> {kernel name: (device ms, launches)}.  A dict
+    passed as ``window`` gets the first start and last end, in the
+    profiler's microseconds, of its host and device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
+        time.sleep(pad)
         fn()
         torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
+        time.sleep(pad)
     per_name, ends = {}, {"host": [], "device": []}
     for e in prof.events():
         # user annotations (e.g. the optimiser's step range) span kernels
@@ -3594,6 +3647,8 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print("  ptxas:", ln.strip(), flush=True)
+    if logs:
+        _backward_spills(logs)
 
     # phase 2: kernels against their plain versions
     errs = _b1_check()
@@ -3641,6 +3696,9 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             _b1_times(T, B, H, dtype)
             _b1_backward_times(dtype, T=T, B=B, H=H)
+    # the backward at the Gesture step's batch 256
+    for dtype in (torch.bfloat16, torch.float32):
+        _b1_backward_times(dtype, T=34, B=256, H=300)
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
     _sass_reckoning()
 
@@ -3712,7 +3770,8 @@ def main() -> int:
         "launches_by_path": by_path("b1_bwd"),
         "max_abs_err": bwd_errs[(34, 96, 300, torch.bfloat16)],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "waves": t["waves"]})
     for k, name, line in (("b2", "contrastive_fwd", 51),
                           ("b3", "contrastive_bwd_da", 97),
                           ("b4", "contrastive_bwd_db", 115)):

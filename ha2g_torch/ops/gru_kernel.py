@@ -24,7 +24,10 @@ contraction each.  ``gru_recurrence_backward.calls`` counts its calls.
 
 Both kernels split the hidden units over a thread-block cluster of
 ``CLUSTER`` CTAs (``cluster_plan``); ``MAX_HIDDEN`` is the largest hidden
-size whose share of ``w_hh`` fits one CTA's shared memory in both dtypes.
+size whose share of ``w_hh`` fits one CTA in both dtypes.  The backward
+kernel's d_gh . w_hh^T product runs on the tensor cores: in bf16 with d_gh
+split into bf16 hi + lo (~2^-17 relative to an fp32 product), in fp32 as
+3xTF32; its clusters carry ``rows_backward`` rows.
 """
 
 from __future__ import annotations
@@ -62,23 +65,59 @@ def _ldw(k4: int) -> int:
 
 
 def rows_per_group(B: int) -> int:
-    """Rows of the batch one cluster carries."""
+    """Rows of the batch one forward cluster carries."""
     return next((rb for rb in (1, 2, 4, 8) if B <= rb), 16)
+
+
+BWD_SPLIT_BATCH = 112  # bf16: the backward's clusters carry 32 rows above
+
+
+def rows_backward(B: int, dtype: torch.dtype) -> int:
+    """Rows of the batch one backward cluster carries: 16 (an m-tile), 32
+    in bf16 above BWD_SPLIT_BATCH, where 16 would need more clusters than
+    the card runs at once."""
+    return 32 if dtype == torch.bfloat16 and B > BWD_SPLIT_BATCH else 16
+
+
+def _backward_smem(H: int, rb: int, dtype: torch.dtype) -> int:
+    """The backward's shared memory (csrc/gru_recurrence.cu::bwd_smem):
+    fp32 keeps w_hh[:, C_k] ([H][kw]) and d_gh ([rb][kw]) as floats, bf16
+    d_gh as hi and lo ([2][rb][136]); the partials of every source CTA
+    twice over, g z and the staged inputs (two buffers in bf16, one in
+    fp32) in whole 16-byte chunks, then the two recv buffers' mbarriers;
+    bf16 first stages w_hh[:, C_k] after d_gh."""
+    hs = _cdiv(H, CLUSTER)
+    elem = 4 if dtype == torch.float32 else 2
+    sx = 16 * _cdiv(hs + 16 // elem - 1, 16 // elem)
+    sf = 16 * _cdiv(hs + 3, 4)
+    if dtype == torch.bfloat16:
+        w, a, nst = 0, _rup(2 * rb * 136 * 2, 16), 2
+    else:
+        kw = _rup(3 * hs, 8) + 4
+        w, a, nst = _rup(H * kw * 4, 16), _rup(rb * kw * 4, 16), 1
+    total = (w + a + 2 * CLUSTER * rb * hs * 4 + _rup(rb * hs * 4, 16)
+             + nst * rb * 4 * (sx + sf))
+    # bf16 first stages w_hh[:, C_k] after d_gh: 3 row slices a unit, then
+    # rows of 136 (ldmatrix)
+    w_t = a + _rup(H * 3 * sx, 16) + _rup(H, 8) * 136 * 2
+    if dtype == torch.bfloat16:
+        total = max(total, w_t)
+    return _rup(total, 16) + 16      # and an mbarrier for each recv buffer
 
 
 def cluster_plan(H: int, B: int, dtype: torch.dtype) -> dict:
     """How both kernels split a layer of hidden size H at batch B: the
-    unit slice of every CTA of a cluster, the rows a cluster carries, the
-    number of clusters, and each kernel's shared memory in bytes (the
-    forward on the tensor cores for bf16, rows padded to 16; the backward
-    with one or two d_gh buffers).  Raises ValueError where a CTA's share
-    does not fit."""
+    unit slice of every CTA of a cluster; the forward's rows a cluster,
+    clusters and shared memory in bytes (on the tensor cores for bf16,
+    rows padded to 16); the backward's (``rows_backward``; its product on
+    the tensor cores, bf16 split hi + lo or 3xTF32).  Raises ValueError
+    where a CTA's share does not fit."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}")
     elem = 4 if dtype == torch.float32 else 2
     rb = rows_per_group(B)
     hs = _cdiv(H, CLUSTER)
-    h4, g4 = _rup(H, 4), _rup(3 * H, 4)
+    h4 = _rup(H, 4)
     mma = dtype == torch.bfloat16
     if mma:     # w_hh's slice lives in registers
         npad, kp = _rup(3 * hs, 8), _rup(H, 16) + 8
@@ -88,23 +127,20 @@ def cluster_plan(H: int, B: int, dtype: torch.dtype) -> dict:
         ks = THREADS // (32 * (rb // min(rb, 8)))
         fwd = (_rup(n * _ldw(h4) * elem, 16) + _rup(n * 4, 16)
                + _rup(2 * rb * h4 * 4, 16) + ks * rb * n * 4)
-
-    def bwd(nbuf):
-        ks = THREADS // (8 * (rb // min(rb, 4)))
-        return (_rup(hs * _ldw(g4) * elem, 16) + _rup(nbuf * rb * g4 * 4, 16)
-                + ks * rb * hs * 4)
-
-    nbuf = 2 if bwd(2) <= SMEM_LIMIT else 1
+    rb_bwd = rows_backward(B, dtype)
+    bwd = _backward_smem(H, rb_bwd, dtype)
     plan = {"slices": [(min(H, k * hs), min(H, (k + 1) * hs))
                        for k in range(CLUSTER)],
             "rows": rb, "clusters": 2 * _cdiv(B, rb), "mma": mma,
-            "smem_forward": fwd, "smem_backward": bwd(nbuf)}
-    # register tiles: 3 hs gate columns over 32 lanes x 4, hs units over
-    # 8 lanes x 5; the mma B fragments cover 20 k-steps of 16
-    if (max(fwd, bwd(nbuf)) > SMEM_LIMIT or rb * hs > MAX_ITEMS * THREADS
-            or 3 * hs > 128 or hs > 40 or (mma and H > 320)):
+            "smem_forward": fwd, "rows_backward": rb_bwd,
+            "clusters_backward": 2 * _cdiv(B, rb_bwd), "smem_backward": bwd}
+    # forward register tiles: 3 hs gate columns over 32 lanes x 4, the mma
+    # B fragments 20 k-steps of 16; backward: 3 hs columns in 8 k-steps of
+    # 16, H units in 3 n-tiles of 8 a warp of 16
+    if (max(fwd, bwd) > SMEM_LIMIT or rb * hs > MAX_ITEMS * THREADS
+            or 3 * hs > 128 or (mma and H > 320) or _cdiv(H, 8) > 16 * 3):
         raise ValueError(f"hidden size {H} does not fit the cluster kernels "
-                         f"(shared memory {fwd} / {bwd(nbuf)} bytes of "
+                         f"(shared memory {fwd} / {bwd} bytes of "
                          f"{SMEM_LIMIT})")
     return plan
 
@@ -113,7 +149,7 @@ def _max_hidden() -> int:
     def fits(H):
         try:
             for dtype in _DTYPE_CODES:
-                for B in (1, 2, 4, 8, 16):
+                for B in (1, 2, 4, 8, 16, 128):
                     cluster_plan(H, B, dtype)
         except ValueError:
             return False
@@ -282,6 +318,12 @@ def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
         return gru_backward_loop_plain(*tensors)
     if H > MAX_HIDDEN:
         raise ValueError(f"hidden size {H} exceeds the kernel's {MAX_HIDDEN}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("gru_backward_loop needs 16-byte aligned inputs (the "
+                         "kernel stages them in 16-byte chunks)")
+    if xp.numel() > 2 ** 31 - 1:
+        raise ValueError(f"xp {tuple(xp.shape)} too large for the kernel's "
+                         f"32-bit offsets")
     d_gx = torch.empty((T, 2, B, G), dtype=torch.float32, device=xp.device)
     d_gh = torch.empty_like(d_gx)
     d_h0 = torch.empty((2, B, H), dtype=torch.float32, device=xp.device)

@@ -33,12 +33,15 @@ def cuda():
 # the cluster split: ragged last slices (300 = 7 * 38 + 34, 45), one row
 # group (B <= 16) and several (96, 97: a ragged last group), FFMA rows
 # 1 / 4 / 8 and the bf16 tensor-core path at 16 rows; the GAN baselines'
-# batch 128 (16 clusters) at the multimodal generator's H = 300 and its
-# discriminator's H = 64 over 28 steps; the Expressive step's 48 rows a
-# rank on two data-parallel ranks
+# batch 128 (16 forward clusters) at the multimodal generator's H = 300
+# and its discriminator's H = 64 over 28 steps; the Expressive step's 48
+# rows a rank on two data-parallel ranks; the Gesture step's batch 256
+# (bf16: the backward's 32-row clusters from batch 113 on), and 113 and
+# 200, whose last 32-row group is ragged (17 and 8 rows)
 SHAPES = [(7, 3, 48), (34, 1, 300), (34, 8, 300), (34, 96, 300),
           (34, 97, 300), (11, 5, 200), (6, 16, 45), (34, 128, 300),
-          (28, 128, 64), (34, 48, 300)]
+          (28, 128, 64), (34, 48, 300), (34, 256, 300), (34, 113, 300),
+          (34, 200, 300)]
 
 
 def _b1_args(T, B, H, dtype, device, seed=0):
@@ -64,18 +67,16 @@ def test_kernel_matches_plain(cuda, T, B, H, dtype):
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,B,H", SHAPES)
-def test_backward_kernel_matches_plain_loop(cuda, T, B, H, dtype):
-    """The backward kernel against the plain loop on the same inputs: both
-    fp32 throughout, so only summation order differs."""
-    xp, h0, w_hh, b_hh = _b1_args(T, B, H, dtype, cuda, seed=3)
+def _check_backward_loop(T, B, H, dtype, device):
+    """The backward kernel against the plain loop on the same inputs,
+    relative L2 of each output within 1e-4."""
+    xp, h0, w_hh, b_hh = _b1_args(T, B, H, dtype, device, seed=3)
     outs = gru_recurrence_plain(xp, h0, w_hh, b_hh)
     h_prev = torch.cat([h0[None], outs[:-1]]).float()
     hh = (torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh.float())
           + b_hh.float()[None, :, None]).contiguous()
     d_outs = torch.randn(outs.shape, generator=torch.Generator()
-                         .manual_seed(4)).to(cuda, dtype)
+                         .manual_seed(4)).to(device, dtype)
     before = gru_backward_loop.launches
     got = gru_backward_loop(xp, hh, h_prev, w_hh, d_outs)
     torch.cuda.synchronize()
@@ -85,6 +86,15 @@ def test_backward_kernel_matches_plain_loop(cuda, T, B, H, dtype):
         assert a.dtype == torch.float32 and a.shape == b.shape
         assert ((a.double() - b.double()).norm()
                 / b.double().norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", SHAPES)
+def test_backward_kernel_matches_plain_loop(cuda, T, B, H, dtype):
+    """The backward kernel against the plain loop on the same inputs: the
+    loop fp32 throughout, the kernel's product bf16 hi + lo (bf16) or
+    3xTF32 (fp32)."""
+    _check_backward_loop(T, B, H, dtype, cuda)
 
 
 def test_kernels_reject_hidden_above_max(cuda):
@@ -101,13 +111,29 @@ def test_kernels_reject_hidden_above_max(cuda):
 
 def test_max_hidden_launches(cuda):
     """The largest hidden size runs in both dtypes at 16 rows, where the
-    shared memory is largest."""
+    forward's shared memory is largest, and the backward at 16 and 128
+    rows (bf16: 16 and 32 rows a cluster; the fp32 backward's shared
+    memory sets MAX_HIDDEN)."""
     for dtype in (torch.float32, torch.bfloat16):
         args = _b1_args(3, 16, MAX_HIDDEN, dtype, cuda)
         got = gru_recurrence(*args)
         want = gru_recurrence_plain(*args)
         assert K.max_active_clusters(16, MAX_HIDDEN, dtype) >= 1
         assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+        for B in (16, 128):
+            assert K.max_active_clusters(B, MAX_HIDDEN, dtype,
+                                         backward=True) >= 1
+            _check_backward_loop(3, B, MAX_HIDDEN, dtype, cuda)
+
+
+@pytest.mark.parametrize("B", [96, 128])
+def test_backward_clusters_run_in_one_wave(cuda, B):
+    """The backward's clusters at the Expressive step's batch 96 and the
+    baselines' 128 fit on the card at once (bf16: 16 rows a cluster at
+    96, 32 at 128)."""
+    plan = K.cluster_plan(300, B, torch.bfloat16)
+    assert K.max_active_clusters(B, 300, torch.bfloat16, backward=True) \
+        >= plan["clusters_backward"]
 
 
 def test_kernel_rejects_non_contiguous(cuda):

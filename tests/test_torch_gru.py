@@ -21,7 +21,9 @@ from ha2g_tpu.ops.pallas_gru import _pallas_forward, gru_sequence_reference
 from ha2g_torch.convert import _gru
 from ha2g_torch.ops.gru import GRU
 from ha2g_torch.ops.gru_kernel import (MAX_HIDDEN, cluster_plan,
-                                       gru_backward_loop, gru_recurrence,
+                                       gru_backward_loop,
+                                       gru_backward_loop_plain,
+                                       gru_recurrence,
                                        gru_recurrence_backward,
                                        gru_recurrence_plain)
 import tests.torch_cpu  # noqa: F401  (one torch thread)
@@ -202,3 +204,147 @@ def test_cluster_plan_at_a_data_parallel_rank_rows(dtype):
     assert rows_per_group(48) == 16
     plan = cluster_plan(300, 48, dtype)
     assert plan["rows"] == 16 and plan["clusters"] == 2 * 3
+
+
+def _trunc_tf32(v):
+    """The TF32 truncation of float32 v (what the tensor cores read)."""
+    return (v.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(v, scheme):
+    """v = hi + lo as the backward kernel splits an operand."""
+    if scheme == "bf16":
+        hi = v.to(torch.bfloat16).float()
+        return hi, (v - hi).to(torch.bfloat16).float()
+    hi = _trunc_tf32(v)
+    return hi, _trunc_tf32(v - hi)
+
+
+def _emulated_backward_loop(xp, hh, h_prev, w_hh, d_outs, scheme):
+    """The backward kernel's arithmetic (csrc/gru_recurrence.cu) in float32
+    on the CPU: CTA k of the 8 owns the units J_k and the gate columns
+    C_k = {j, H+j, 2H+j : j in J_k}, multiplies d_gh[:, C_k], split into
+    hi + lo, by w_hh[:, C_k]^T for all units (each chain a product of its
+    own, the chains added in the kernel's order: bf16 hi, lo; TF32 hi.hi,
+    lo.hi, hi.lo), and the owner of each unit sums g z and the 8 partials
+    in the order k = 0..7."""
+    T, H = xp.shape[0], h_prev.shape[-1]
+    hs = -(-H // 8)
+    x = xp.float()
+    r = torch.sigmoid(x[..., :H] + hh[..., :H])
+    z = torch.sigmoid(x[..., H:2 * H] + hh[..., H:2 * H])
+    h_n = hh[..., 2 * H:]
+    n = torch.tanh(x[..., 2 * H:] + r * h_n)
+    f_n = (1.0 - z) * (1.0 - n * n)
+    f_z = (h_prev - n) * z * (1.0 - z)
+    f_r = f_n * h_n * r * (1.0 - r)
+    w = w_hh.float()
+    w_hi, w_lo = _split(w, scheme) if scheme == "tf32x3" else (w, None)
+    slices = []
+    for k in range(8):
+        units = list(range(k * hs, min(H, (k + 1) * hs)))
+        slices.append([g * H + j for g in range(3) for j in units])
+    d_outs = d_outs.float()
+    d_gx, d_gh = torch.empty_like(hh), torch.empty_like(hh)
+    dh = torch.zeros_like(d_outs[0])
+    for t in range(T - 1, -1, -1):
+        g = dh + d_outs[t]
+        d_gx[t] = g.repeat(1, 1, 3) * torch.cat([f_r[t], f_z[t], f_n[t]], -1)
+        d_gh[t] = g.repeat(1, 1, 3) * torch.cat(
+            [f_r[t], f_z[t], f_n[t] * r[t]], -1)
+        a_hi, a_lo = _split(d_gh[t], scheme)
+        dh = g * z[t]
+        for cols in slices:
+            wt = lambda m: m[:, :, cols].transpose(1, 2)     # (2, |C_k|, H)
+            if scheme == "bf16":
+                chains = [torch.bmm(a[:, :, cols], wt(w)) for a in (a_hi, a_lo)]
+            else:
+                chains = [torch.bmm(a_hi[:, :, cols], wt(w_hi)),
+                          torch.bmm(a_lo[:, :, cols], wt(w_hi)),
+                          torch.bmm(a_hi[:, :, cols], wt(w_lo))]
+            part = chains[0]
+            for c in chains[1:]:
+                part = part + c
+            dh = dh + part
+    return d_gx, d_gh, dh
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "tf32x3"])
+@pytest.mark.parametrize("t,b,h", [(34, 96, 300), (11, 5, 200)])
+def test_split_product_emulation_matches_plain_and_jax_vjp(t, b, h, scheme):
+    """The backward kernel's precision scheme before any card run: the
+    column-sliced d_gh . w_hh^T with d_gh split into bf16 hi + lo (bf16
+    storage: xp, w_hh and d_outs hold bf16 values) or into TF32 hi + lo
+    with w_hh split too (fp32 storage), partials summed over the 8 CTAs in
+    the kernel's order, against the plain loop on the same inputs and the
+    whole backward against jax.vjp of the JAX scan, relative L2 <= 1e-4."""
+    rng = np.random.default_rng(5)
+    k = h ** -0.5
+    xp = rng.normal(size=(t, 2, b, 3 * h)) * 0.5
+    h0 = rng.normal(size=(2, b, h)) * 0.5
+    w_hh = rng.uniform(-k, k, size=(2, h, 3 * h))
+    b_hh = rng.uniform(-k, k, size=(2, 3 * h))
+    d_outs = rng.normal(size=(t, 2, b, h))
+    xp, h0, w_hh, b_hh, d_outs = (torch.from_numpy(a.astype(np.float32))
+                                  for a in (xp, h0, w_hh, b_hh, d_outs))
+    if scheme == "bf16":      # the values bf16 storage holds, in float32
+        xp, w_hh, d_outs = (a.to(torch.bfloat16).float()
+                            for a in (xp, w_hh, d_outs))
+    outs = gru_recurrence_plain(xp, h0, w_hh, b_hh)
+    h_prev = torch.cat([h0[None], outs[:-1]])
+    hh = torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh) + b_hh[None, :, None]
+    got = _emulated_backward_loop(xp, hh, h_prev, w_hh, d_outs, scheme)
+    want = gru_backward_loop_plain(xp, hh, h_prev, w_hh, d_outs)
+    for name, g, w in zip(("d_gx", "d_gh", "d_h0"), got, want):
+        assert _rel_l2(g, w) <= 1e-4, name
+
+    _, vjp = jax.vjp(_gru_scan, *(jnp.asarray(a.numpy())
+                                  for a in (xp, h0, w_hh, b_hh)))
+    jax_grads = vjp((jnp.asarray(d_outs.numpy()), jnp.zeros((2, b, h))))
+    d_gx, d_gh, d_h0 = got
+    ours = (d_gx, d_h0, torch.einsum("tdbh,tdbg->dhg", h_prev, d_gh),
+            d_gh.sum(dim=(0, 2)))
+    for name, g, w in zip(("d_xp", "d_h0", "d_w_hh", "d_b_hh"), ours,
+                          jax_grads):
+        assert _rel_l2(g, w) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_plan_backward_keys(dtype):
+    """The backward's own row groups: 16 rows (an m-tile), 32 in bf16
+    above a batch of 112, so the baselines' batch 128 runs as 8 clusters
+    and the Expressive step's 96 as 12 (the card holds 15 at once); its
+    shared memory fits at every batch; the forward's keys unchanged."""
+    for B in (1, 3, 8, 16, 32, 96, 97, 113, 128, 200, 256):
+        plan = cluster_plan(300, B, dtype)
+        assert plan["smem_backward"] <= 232448
+        assert plan["rows_backward"] == (32 if dtype == torch.bfloat16
+                                         and B > 112 else 16)
+        assert plan["clusters_backward"] == 2 * -(-B // plan["rows_backward"])
+        assert plan["clusters"] == 2 * -(-B // plan["rows"])
+    if dtype == torch.bfloat16:
+        for B in (96, 128):
+            assert cluster_plan(300, B, dtype)["clusters_backward"] <= 15
+    assert MAX_HIDDEN >= 313
+
+
+def test_chip_smoke_counts_backward_spills():
+    """chip_smoke.py fails a build whose ptxas log shows B1's backward
+    kernel spilling, and only its spills count."""
+    import chip_smoke
+    head = "ptxas info    : Function properties for _ZN12_GLOBAL__N_1{}\n"
+    row = "    0 bytes stack frame, {} bytes spill stores, {} bytes spill loads\n"
+    log = (head.format("19gru_backward_kernelIfLi1EEEvPKT_") + row.format(0, 0)
+           + head.format("21gru_recurrence_kernelIfLi16ELb0EEEvPKT_")
+           + row.format(8, 8))
+    assert chip_smoke._backward_spills({"gru": log}) == 0
+    spilled = log + head.format("19gru_backward_kernelI13__nv_bfloat16Li2EEE"
+                                "vPKT_") + row.format(4, 12)
+    with pytest.raises(AssertionError, match="spills 16 bytes"):
+        chip_smoke._backward_spills({"gru": spilled})
+
