@@ -133,7 +133,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    compare-trajectory`` of the run against ted_expressive_new (the
    report's structure); ``cli train`` of the gesture autoencoder on a
    synthetic Human3.6M npz (no launch); ``cli doctor`` (exit 0, the
-   card's name, its tiny step's launches).
+   card's name, its tiny step's launches);
+13. the last modules: ``cli build-dataset --qa-report`` over a work
+   directory of tool artifacts for 4 synthetic TED Expressive videos of
+   66 s at 25 fps (wav, OpenPose frames with the skeletons, scenes, an
+   auto-subtitle .vtt; one video faces away and is rejected): its clips
+   per split, seconds and report; the built clips windowed by the native
+   C++ engine and by numpy (equal counts, targets within 2e-5); the
+   shipped Expressive config (bf16, batch 96) trained on them for a
+   warm-up and two GAN epochs through ``Trainer(tensorboard=True,
+   profile_dir=...)`` and ``fit(render_every=1)`` with a seeded random
+   MotionAE evaluator: every kernel's launches against the dataflow, the
+   profiler's Chrome trace holding B1's kernel at every launch made while
+   it recorded iterations 3-5, each render a GIF read back by a stdlib
+   reader, the tensorboard writer or its warning, ``get_features_for_viz``
+   (n, 2) twice; ``cli synthesize --render`` from the checkpoint (B1 at
+   24 launches a window); B1, its backward and B2-B4 against their plain
+   versions at the phase's shapes.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -3618,6 +3634,353 @@ def _data_path(work: Path, card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the last modules (dataset construction, native windowing, the
+# trainer's hooks, rendering)
+# ---------------------------------------------------------------------------
+
+LAST_CONFIG = "configs_expressive/hierarchy.yaml"
+# the artifact work directory: videos of 66 s at 25 fps, three scenes of
+# 22 s each, a word every 0.4 s; the last video's speaker faces away (the
+# filter rejects its scenes as "looking behind").  Nine clips pass: one
+# val, one test, seven train (203 windows: two batches of 96 an epoch)
+LAST_VIDEOS, LAST_SECONDS, LAST_FPS, LAST_SCENES = 4, 66.0, 25, 3
+# a warm-up epoch and two GAN epochs: six steps, so the profiler records
+# global iterations 3-5
+LAST_EPOCHS = 3
+NATIVE_TARGET_ATOL = 2e-5
+
+
+def _person25(x0, front=True, shoulder=150.0):
+    """An OpenPose BODY_25 person: nose, neck, shoulders, elbows and
+    wrists around x0 (facing the camera, or away: shoulders swapped), the
+    other 17 points zero."""
+    p = np.zeros((25, 3), np.float32)
+    half = shoulder / 2
+    xs = [x0, x0, x0 - half, x0 - half - 10, x0 - half - 20, x0 + half,
+          x0 + half + 10, x0 + half + 20]
+    if not front:
+        xs[2], xs[5] = xs[5], xs[2]
+    p[:8, 0] = xs
+    p[:8, 1] = [100, 160, 160, 220, 280, 160, 220, 280]
+    p[:8, 2] = 0.9
+    return p
+
+
+def _vtt_time(t: float) -> str:
+    return f"{int(t // 3600):02d}:{int(t % 3600 // 60):02d}:{t % 60:06.3f}"
+
+
+def _last_artifacts(work: Path) -> list:
+    """build-dataset's work directory as the outside tools leave it (each
+    step resumes from its artifact): a video marker, a 16 kHz mono wav,
+    OpenPose frames with TED Expressive skeletons (``keypoints/``, the
+    skeletons written directly: the ExPose adapter keeps 23 joints), the
+    scenes and an auto-subtitle .vtt, a video.  -> the video ids."""
+    import wave
+    from ha2g_torch.data.synthetic import synthetic_clips
+    from ha2g_torch.skeleton import TED_EXPRESSIVE
+    n_frames = int(LAST_SECONDS * LAST_FPS)
+    for d in ("videos", "audio", "keypoints", "scenes"):
+        (work / d).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(13)
+    vocab = [f"word{i}" for i in range(300)]
+    ids = []
+    for v in range(LAST_VIDEOS):
+        vid = f"ted_video_{v}"
+        ids.append(vid)
+        clip = synthetic_clips(TED_EXPRESSIVE, n_clips=1,
+                               clip_seconds=LAST_SECONDS, fps=LAST_FPS,
+                               seed=130 + v)[0]
+        (work / "videos" / f"{vid}.mp4").write_bytes(b"\x00")
+        pcm = (np.clip(clip["audio_raw"], -1, 1) * 32767).astype("<i2")
+        with wave.open(str(work / "audio" / f"{vid}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes(pcm.tobytes())
+        front = v < LAST_VIDEOS - 1
+        kp = np.empty(n_frames, dtype=object)
+        for i in range(n_frames):
+            kp[i] = _person25(400 + 30 * np.sin(i / 40), front)[None]
+        np.savez_compressed(work / "keypoints" / f"{vid}.npz",
+                            keypoints_2d=kp,
+                            skeletons_3d=clip["skeletons_3d"])
+        step = n_frames // LAST_SCENES
+        (work / "scenes" / f"{vid}.csv").write_text("".join(
+            f"{s},{s + step}\n" for s in range(0, n_frames, step)))
+        # cues of 2 s, five words each: every word's end inline but the
+        # last's, which ends with the cue
+        cues = []
+        for c in range(int(LAST_SECONDS // 2)):
+            t0 = 2.0 * c
+            words = rng.choice(vocab, 5)
+            line = words[0] + "".join(
+                f"<{_vtt_time(t0 + 0.4 * (k + 1))}><c> {words[k + 1]}</c>"
+                for k in range(4))
+            cues.append(f"{_vtt_time(t0)} --> {_vtt_time(t0 + 2.0)}\n"
+                        f"{line}\n")
+        (work / "videos" / f"{vid}-en-auto.vtt").write_text(
+            "WEBVTT\nKind: captions\nLanguage: en\n\n" + "\n".join(cues))
+    return ids
+
+
+def _gif_info(path) -> dict:
+    """A GIF read with the standard library alone: its size, frames and
+    frame delays (hundredths of a second), walking its blocks."""
+    import struct
+    data = Path(path).read_bytes()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise AssertionError(f"{path} is not a GIF")
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    i = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays = 0, []
+
+    def skip_sub_blocks(i):
+        while data[i]:
+            i += data[i] + 1
+        return i + 1
+
+    while data[i] != 0x3B:
+        if data[i] == 0x21:                      # an extension
+            if data[i + 1] == 0xF9:
+                delays.append(struct.unpack("<H", data[i + 4:i + 6])[0])
+            i = skip_sub_blocks(i + 2)
+        elif data[i] == 0x2C:                    # an image
+            fw, fh, fpacked = struct.unpack("<HHB", data[i + 5:i + 10])
+            if (fw, fh) != (w, h):
+                raise AssertionError(f"{path}: a frame of another size")
+            i += 10 + (3 << ((fpacked & 7) + 1) if fpacked & 0x80 else 0)
+            i = skip_sub_blocks(i + 1)           # LZW code size, data
+            frames += 1
+        else:
+            raise AssertionError(f"{path}: a bad block at byte {i}")
+    return {"width": w, "height": h, "frames": frames, "delays": delays}
+
+
+def _trace_kernels(path, pattern) -> tuple[int, list]:
+    """A Chrome trace's device kernels named like ``pattern`` and the
+    iterations of its ``train_step#<i>`` ranges."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    n = sum(1 for e in events if e.get("cat") == "kernel"
+            and pattern in e.get("name", ""))
+    steps = sorted({int(e["name"].split("#")[1]) for e in events
+                    if e.get("name", "").startswith("train_step#")})
+    return n, steps
+
+
+def _last_modules(work: Path, card: str):
+    """Phase 13: ``cli build-dataset --qa-report`` over a work directory of
+    synthetic TED Expressive videos, the built clips windowed by the native
+    engine and by numpy, the shipped Expressive config (bf16, batch 96)
+    trained on them through ``Trainer(tensorboard=True, profile_dir=...)``
+    and ``fit(render_every=1)`` with a seeded random MotionAE evaluator,
+    its feature view, ``cli synthesize --render`` from the checkpoint; B1,
+    its backward and B2-B4 against their plain versions at the phase's
+    shapes.  -> launch counts by path."""
+    import ast
+    from ha2g_torch import cli, native, render
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.dataset import window_clips
+    from ha2g_torch.data.storage import load_clips
+    from ha2g_torch.eval.fgd import EmbeddingSpaceEvaluator
+    from ha2g_torch.models.common import init_parameters_
+    from ha2g_torch.models.motion_ae import MotionAE
+    from ha2g_torch.synthesis import _window_layout
+    from ha2g_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = Config.from_yaml(ROOT / LAST_CONFIG)
+    zero = dict.fromkeys(_expected_counts(cfg, True), 0)
+    per_call = cfg.skeleton.n_levels * cfg.n_layers
+    counts = {}
+
+    # build-dataset (host only: no launch)
+    ids = _last_artifacts(work / "work")
+    data = work / "data"
+    _reset_counts()
+    t = time.perf_counter()
+    printed = _cli_call(["build-dataset", *ids, "--work", str(work / "work"),
+                         "--out", str(data), "--qa-report"], zero)
+    build_s = time.perf_counter() - t
+    result = ast.literal_eval(printed.strip().splitlines()[-1])
+    report = Path(result["qa_report"]).read_text()
+    ok = (result["videos"] == LAST_VIDEOS - 1
+          and result["skipped"] == [ids[-1]]
+          and (result["train"], result["val"], result["test"]) == (7, 1, 1)
+          and "looking behind" in report
+          and report.count("data:image/png;base64") == 6)
+    _line("last-build-dataset", videos=result["videos"],
+          skipped=result["skipped"], train=result["train"],
+          val=result["val"], test=result["test"],
+          seconds=f"{build_s:.2f}", report_bytes=len(report), ok=ok,
+          card=card)
+    if not ok:
+        raise AssertionError("build-dataset built other clips than planned")
+
+    # the built clips windowed by the native engine and by numpy
+    train_clips = load_clips(data / "train")
+    run_cfg, lang, speaker, train_s, val_s = cli._prepare(cfg.replace(
+        train_data_path=str(data / "train"),
+        test_data_path=str(data / "val"), eval_net_path="",
+        loss_warmup=0, epochs=LAST_EPOCHS, random_seed=0,
+        model_save_path=str(work / "out")))
+    kw = dict(spec=cfg.skeleton, lang=lang, speaker=speaker,
+              mean_pose=cfg.mean_pose_array,
+              mean_dir_vec=cfg.mean_dir_vec_array, n_poses=cfg.n_poses,
+              subdivision_stride=cfg.subdivision_stride,
+              fps=cfg.motion_resampling_framerate, static_joints=(6, 7))
+    windows, seconds = {}, {}
+    for use in (True, False):
+        t = time.perf_counter()
+        windows[use] = window_clips(train_clips, use_native=use, **kw)
+        seconds[use] = time.perf_counter() - t
+    a, b = windows[True], windows[False]
+    diff = float(np.abs(a.target - b.target).max()) if len(a) == len(b) \
+        else float("inf")
+    ok = (native.available() and len(a) == len(b) == len(train_s)
+          and diff <= NATIVE_TARGET_ATOL and all(
+              np.array_equal(getattr(a, f), getattr(b, f))
+              for f in ("text", "word_seq", "audio", "spec", "vids")))
+    _line("last-windows", native=len(a), numpy=len(b),
+          max_target_diff=f"{diff:.3g}", atol=NATIVE_TARGET_ATOL,
+          native_s=f"{seconds[True]:.3f}", numpy_s=f"{seconds[False]:.3f}",
+          ok=ok, card=card)
+    if not ok:
+        raise AssertionError("the native engine and numpy window apart")
+    del windows, a, b
+
+    # the trainer's hooks and renders on the built clips
+    B = cfg.batch_size
+    n_train, n_val = len(train_s) // B, -(-len(val_s) // B)
+    if n_train * LAST_EPOCHS < 6 or len(val_s) >= B:
+        raise AssertionError(f"{len(train_s)} train / {len(val_s)} val "
+                             "windows: not the phase's plan")
+    net = MotionAE(126, 128)
+    init_parameters_(net, torch.Generator().manual_seed(0))
+    evaluator = EmbeddingSpaceEvaluator(126, cfg.n_poses, net.state_dict())
+    trainer = Trainer(run_cfg, train_s, val_s, lang, speaker, evaluator,
+                      tensorboard=True, profile_dir=str(work / "profile"))
+    tb_wrote = trainer.tb is not None
+    # the B1 launches inside the profiler's recording: from its step after
+    # iteration 2 to its step after iteration 5
+    window = {}
+    profile_step = Trainer._profile_step
+
+    def marked(self):
+        if self.global_iter in (3, 6):
+            window[self.global_iter] = _read_counts()["b1"]
+        profile_step(self)
+
+    renders = []
+    create = render.create_video_and_save
+
+    def timed_render(*args, **kwargs):
+        t = time.perf_counter()
+        path = create(*args, **kwargs)
+        renders.append((path, time.perf_counter() - t))
+        return path
+
+    times, unwrap = _timed_train_steps()
+    Trainer._profile_step = marked
+    render.create_video_and_save = timed_render
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    try:
+        history = trainer.fit(render_every=1)
+    finally:
+        unwrap()
+        Trainer._profile_step = profile_step
+        render.create_video_and_save = create
+    fit_s = time.perf_counter() - t
+    counts["last-modules:fit"] = _read_counts()
+    evals = {**zero, "b1": n_val * per_call}
+    want = _add(*[evals] * (2 * LAST_EPOCHS + 1), *[
+        {k: n_train * v for k, v in _expected_counts(cfg, e > 0).items()}
+        for e in range(LAST_EPOCHS)])
+    launches_ok = counts["last-modules:fit"] == want
+    trace = work / "profile" / "trace.json"
+    traced, steps = _trace_kernels(trace, KERNEL_PATTERNS["b1"]) \
+        if trace.exists() else (0, [])
+    in_window = window.get(6, -1) - window.get(3, 0)
+    gifs = [_gif_info(p) for p, _ in renders]
+    frames = sum(g["frames"] for g in gifs)
+    tb_files = list((work / "out" / "tb").glob("events.out.tfevents*"))
+    real, gen = evaluator.get_features_for_viz()
+    # epoch 0 warms up without the discriminator; the GAN steps are the
+    # later epochs'.  Each of them runs under the profiler (its warm-up at
+    # step 2, its recording at steps 3-5), and each epoch's first follows
+    # an evaluation and a render
+    warm_ms, gan_ms = times[:n_train], times[n_train:]
+    ok = (launches_ok and len(times) == n_train * LAST_EPOCHS
+          and steps == [3, 4, 5] and traced == in_window
+          >= 3 * _expected_counts(cfg, True)["b1"]
+          and len(renders) == LAST_EPOCHS and all(
+              g["frames"] == cfg.n_poses and g["width"] == 2 * g["height"]
+              and set(g["delays"]) == {1000 // 15 // 10} for g in gifs)
+          and bool(tb_files) == tb_wrote
+          and real.shape == gen.shape == (len(val_s), 2)
+          and np.isfinite(real).all() and np.isfinite(gen).all()
+          and all(np.isfinite(r[k]) for r in history
+                  for k in ("loss", "frechet")))
+    _line("last-fit", epochs=LAST_EPOCHS, steps=len(times),
+          first_step_ms=f"{times[0]:.1f}",
+          warmup_step_ms_median=f"{statistics.median(warm_ms):.1f}",
+          gan_steps=len(gan_ms),
+          gan_step_ms_median=f"{statistics.median(gan_ms):.1f}",
+          fit_seconds=f"{fit_s:.1f}",
+          peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          launches={k: f"{counts['last-modules:fit'][k]}/{want[k]}"
+                    for k in want}, card=card)
+    _line("last-profile", trace_MB=f"{trace.stat().st_size / 1e6:.1f}"
+          if trace.exists() else 0, step_ranges=steps,
+          b1_kernels_traced=traced, b1_launched_while_recording=in_window)
+    _line("last-render", files=len(renders),
+          frames=[g["frames"] for g in gifs],
+          size=f"{gifs[0]['width']}x{gifs[0]['height']}" if gifs else "",
+          s_per_frame=f"{sum(s for _, s in renders) / max(frames, 1):.4f}",
+          card=card)
+    _line("last-tensorboard", wrote=tb_wrote, event_files=len(tb_files),
+          note="" if tb_wrote else "no tensorboard package: warned")
+    _line("last-features", real=tuple(real.shape), generated=tuple(gen.shape),
+          ok=ok)
+    if not ok:
+        raise AssertionError("the trainer's hooks failed their checks")
+    val_rows = len(val_s)
+    del trainer, evaluator, train_s, val_s
+    torch.cuda.empty_cache()
+
+    # synthesize --render from the checkpoint the run saved
+    seconds_clip = min(len(c["audio_raw"]) for c in train_clips[:2]) / SR
+    _, _, W = _window_layout(cfg, seconds_clip)
+    _reset_counts()
+    out_npz = work / "synth.npz"
+    t = time.perf_counter()
+    _cli_call(["synthesize", str(work / "out" / "checkpoint_final"),
+               "--clips", str(data / "train"), "--n", "2", "--render",
+               "--out", str(out_npz)], {**zero, "b1": W * per_call})
+    counts["last-modules:synthesize"] = _read_counts()
+    synth = np.load(out_npz)["dir_vec"]
+    gif = _gif_info(work / "synth_000_0.gif")
+    ok = (synth.shape[0] == 2 and np.isfinite(synth).all()
+          and gif["frames"] == synth.shape[1])
+    _line("last-synthesize", shape=tuple(synth.shape), windows=W,
+          gif_frames=gif["frames"], seconds=f"{time.perf_counter() - t:.1f}",
+          ok=ok, card=card)
+    if not ok:
+        raise AssertionError("synthesize --render failed its checks")
+
+    # the kernels against their plain versions at the phase's shapes: the
+    # train step's, and the evaluation's and renders' batch of val rows
+    _hierarchy_checks(cfg, B)
+    with _uncounted():
+        _b1_check(((cfg.n_poses, val_rows, cfg.hidden_size),))
+    _line("last-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: v["b1"] for k, v in counts.items()}, card=card)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3741,13 +4104,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         baselines.update(_data_path(Path(tmp), smi))
 
+    # phase 13: the last modules (build-dataset, native windowing, the
+    # trainer's tensorboard / profiler / render hooks, synthesize --render)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        baselines.update(_last_modules(Path(tmp), smi))
+
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
         f"training:{config}": run[k] for config, run in runs.items()},
         "training:cli": cli_counts[k], **{
             path: n if k == "b1" else 0 for path, n in serve_paths.items()},
         **{path: c[k] for path, c in baselines.items()}}
-    # phases 9, 10, 11 and 12
+    # phases 9 to 13
     phase9 = lambda k: sum(c[k] for c in baselines.values())
     entries = [{
         "name": "gru_recurrence", "route": "cuda",

@@ -26,6 +26,9 @@
   python -m ha2g_torch.cli compare-trajectory HISTORY.jsonl [--ref NAME|LOG]
       [--keys k,...] [--json OUT]
   python -m ha2g_torch.cli doctor [--device cuda|cpu]
+  python -m ha2g_torch.cli build-dataset [IDS ...] [--video-ids FILE]
+      --work DIR --out DIR [--fps F] [--min-shoulder-px PX] [--qa-report]
+  python -m ha2g_torch.cli make-librosa-goldens [OUT.npz]
 
 A CHECKPOINT is a directory written by the port (``state.pt``) or by the
 JAX package (``state.msgpack``): synthesize, eval, from-text, serve and
@@ -66,6 +69,13 @@ tools run on the host alone; every other command runs on CUDA unless
 ``compare-trajectory`` exits 1 when a metric is BEHIND or the reference
 too short (INSUFFICIENT_REF); ``doctor`` exits 0 only when the device, the
 mel front-end and a tiny GAN step (kernels B1-B4 on the card) all hold.
+``synthesize --render`` also draws the first clip's skeleton animation
+beside ``--out`` (``render.py``: a GIF, or an MP4 with the audio where
+ffmpeg exists).  ``build-dataset`` (host only) runs the dataset
+construction over a work directory of the outside tools' artifacts
+(``dataset_pipeline/``) into clip storage, exit 1 when no video was
+built; ``make-librosa-goldens`` writes the mel / onset goldens with
+librosa itself and fails without it.
 """
 
 from __future__ import annotations
@@ -333,6 +343,8 @@ def cmd_synthesize(argv: list[str]) -> int:
                    help="hierarchy: the audio encoder once over all windows")
     p.add_argument("--fade_out", action="store_true",
                    help="append the fade to the mean pose")
+    p.add_argument("--render", action="store_true",
+                   help="also render the first clip's skeleton animation")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     device = _device(a.device)
@@ -354,6 +366,13 @@ def cmd_synthesize(argv: list[str]) -> int:
         out = synth.generate(audio, words, lang, vids, fade_out=a.fade_out)
     np.savez(a.out, dir_vec=out, audio=audio)
     print(f"wrote {a.out}: {out.shape}")
+    if a.render:
+        from ha2g_torch.render import create_video_and_save
+        path = create_video_and_save(
+            str(Path(a.out).parent), 0, "synth", 0, None, out[0],
+            cfg.mean_dir_vec_array, "synthesized", cfg.skeleton,
+            audio=audio[0])
+        print(f"rendered {path}")
     return 0
 
 
@@ -776,6 +795,57 @@ def cmd_doctor(argv: list[str]) -> int:
     return 0 if ok else 1
 
 
+def cmd_build_dataset(argv: list[str]) -> int:
+    """The dataset construction: download -> audio -> pose -> scenes ->
+    word timings -> filter -> clip-storage splits (the reference's
+    scripts run by hand, dataset_script/README.md:37-88, chained with
+    resume from each step's artifact); prints the result dict."""
+    from ha2g_torch.dataset_pipeline.pipeline import build_dataset
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli build-dataset")
+    p.add_argument("ids", nargs="*", help="YouTube video ids")
+    p.add_argument("--video-ids", default=None,
+                   help="a file of video ids, one a line (reference "
+                        "video_ids.txt)")
+    p.add_argument("--work", required=True, help="working directory "
+                   "(videos/, audio/, keypoints/, scenes/, align/)")
+    p.add_argument("--out", required=True, help="clip-storage output dir")
+    p.add_argument("--fps", type=float, default=25.0)
+    p.add_argument("--min-shoulder-px", type=float, default=100.0)
+    p.add_argument("--qa-report", action="store_true",
+                   help="write <out>/qa_report.html (the headless "
+                        "review_filtered_clips)")
+    a = p.parse_args(argv)
+
+    ids = list(a.ids)
+    if a.video_ids:
+        ids += [ln.strip() for ln in Path(a.video_ids).read_text().split()
+                if ln.strip() and not ln.startswith("#")]
+    if not ids:
+        print("no video ids given")
+        return 1
+    logging.basicConfig(level=logging.INFO)
+    result = build_dataset(ids, a.work, a.out, fps=a.fps,
+                           min_shoulder_px=a.min_shoulder_px,
+                           qa_report=a.qa_report)
+    print(result)
+    return 0 if result["videos"] else 1
+
+
+def cmd_make_librosa_goldens(argv: list[str]) -> int:
+    """The DSP golden fixture computed by librosa itself (needs librosa
+    0.8; the JAX package's tests/test_mel_oracles.py reads it)."""
+    from ha2g_torch.tools import make_librosa_goldens
+
+    p = argparse.ArgumentParser(prog="ha2g_torch.cli make-librosa-goldens")
+    p.add_argument("out", nargs="?",
+                   default="tests/fixtures/librosa_goldens.npz")
+    a = p.parse_args(argv)
+    Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+    print(f"wrote {make_librosa_goldens(a.out)}")
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "eval": cmd_eval,
             "synthesize": cmd_synthesize, "from-text": cmd_from_text,
             "serve": cmd_serve, "import-checkpoint": cmd_import_checkpoint,
@@ -787,7 +857,8 @@ COMMANDS = {"train": cmd_train, "eval": cmd_eval,
             "angle-stats": cmd_angle_stats,
             "parse-reference-log": cmd_parse_reference_log,
             "compare-trajectory": cmd_compare_trajectory,
-            "doctor": cmd_doctor}
+            "doctor": cmd_doctor, "build-dataset": cmd_build_dataset,
+            "make-librosa-goldens": cmd_make_librosa_goldens}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

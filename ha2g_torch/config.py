@@ -36,6 +36,8 @@ class Config:
     model_save_path: str = "output"
     mean_pose: Optional[list[float]] = None
     random_seed: int = -1
+    # the trainer's sample animations (Trainer.fit(render_every=))
+    save_result_video: bool = True
 
     wordembed_path: Optional[str] = None
     wordembed_dim: int = 300

@@ -8,16 +8,18 @@ them into n_poses * 1.25 chunks at the subdivision stride, slice the
 aligned spectrogram and raw-audio windows with symmetric padding, filter
 the motion, turn poses into unit direction vectors minus the dataset
 mean, clip to n_poses frames, and build the frame-aligned word indices and
-the SOS/EOS word sequence.  (The JAX package may run the per-clip part in
-a native C++ engine; the port runs the numpy path, which that engine
-reproduces.)
+the SOS/EOS word sequence.  The per-clip motion part (resample, windows,
+filter, direction vectors) runs in the native C++ engine
+(``ha2g_torch/native``) when it is available, as in the JAX package, else
+in numpy; the engine's targets agree with numpy's within 2e-5 and every
+other array is equal (``use_native=False`` picks the numpy path).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -128,14 +130,21 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
                  lang: Vocab, speaker: Vocab, mean_pose: np.ndarray,
                  mean_dir_vec: np.ndarray, n_poses: int = 34,
                  subdivision_stride: int = 10, fps: int = 15,
-                 static_joints: tuple[int, int] = (6, 9)) -> WindowedSamples:
+                 static_joints: tuple[int, int] = (6, 9),
+                 use_native: Optional[bool] = None) -> WindowedSamples:
     """The whole windowing pipeline over clip records.
 
     Each clip: skeletons_3d (F, n_joints, 3), audio_raw (n,), audio_spec
     (128, S) or None (then its log-mel is computed here), words
-    [(word, start_t, end_t)], start_time, end_time, vid.
+    [(word, start_t, end_t)], start_time, end_time, vid.  ``use_native``:
+    the C++ engine for the motion part; None means the engine where it is
+    available (``native.available()``).
     """
+    from ha2g_torch import native
     from ha2g_torch.ops.mel import log_mel_np
+
+    if use_native is None:
+        use_native = native.available()
 
     n_ext = int(round(n_poses * 1.25))
     audio_len_ext = int(round(n_ext / fps * SR))
@@ -158,15 +167,32 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
         word_list = clip["words"]
         vid_idx = speaker.get_word_index(clip["vid"])
 
-        skel = resample_pose_seq(raw_skel, duration, fps)
-        num_subdivision = math.floor((len(skel) - n_ext)
-                                     / subdivision_stride) + 1
-        for i in range(max(num_subdivision, 0)):
-            start_idx = i * subdivision_stride
-            win = skel[start_idx:start_idx + n_ext]
-            if mfilter.check(win) != "PASS":
-                continue
-            sample_skel_c = win[:n_poses]
+        # the windows that pass the motion filter: (start, frames of the
+        # resampled clip, the window's n_poses frames, target or None)
+        if use_native:
+            targets, poses, starts = native.window_clip_native(
+                raw_skel.reshape(len(raw_skel), spec.n_joints, 3), duration,
+                fps, spec, mean_dir_vec, mean_pose, n_poses, n_ext,
+                subdivision_stride, static_joints)
+            # the resampled clip's length, by the engine's formula
+            n_skel = int(np.ceil(len(raw_skel)
+                                 / (len(raw_skel) / (duration * fps))))
+            candidates = [
+                (int(s), n_skel, p.reshape(n_poses, spec.n_joints, 3), t)
+                for t, p, s in zip(targets, poses, starts)]
+        else:
+            skel = resample_pose_seq(raw_skel, duration, fps)
+            num_subdivision = math.floor((len(skel) - n_ext)
+                                         / subdivision_stride) + 1
+            candidates = []
+            for i in range(max(num_subdivision, 0)):
+                start_idx = i * subdivision_stride
+                win = skel[start_idx:start_idx + n_ext]
+                if mfilter.check(win) == "PASS":
+                    candidates.append((start_idx, len(skel), win[:n_poses],
+                                       None))
+
+        for start_idx, n_skel, sample_skel_c, target in candidates:
             fin_idx = start_idx + n_ext
             sub_start = clip["start_time"] + start_idx / fps
             sub_end = clip["start_time"] + fin_idx / fps
@@ -176,7 +202,7 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
                 continue
 
             # aligned spectrogram window (data_preprocessor.py:106-115)
-            a0 = math.floor(start_idx / len(skel) * clip_spec.shape[1])
+            a0 = math.floor(start_idx / n_skel * clip_spec.shape[1])
             a1 = a0 + spec_len_ext
             cs = clip_spec
             if a1 > cs.shape[1]:
@@ -185,7 +211,7 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
             sample_spec = cs[:, a0:a1]
 
             # aligned raw audio window (data_preprocessor.py:117-128)
-            r0 = math.floor(start_idx / len(skel) * len(audio_raw))
+            r0 = math.floor(start_idx / n_skel * len(audio_raw))
             r1 = r0 + audio_len_ext
             ar = audio_raw
             if r1 > len(ar):
@@ -202,9 +228,12 @@ def window_clips(clips: Iterable[dict], spec: SkeletonSpec,
                     mode="symmetric")
             sample_spec_c = sample_spec[:, :spec_len]
 
-            # direction-vector target (data_preprocessor.py:157-158)
-            dvec = _pose_to_dir_vec_np(sample_skel_c, spec)
-            target = dvec.reshape(n_poses, -1) - mean_dir_vec.reshape(1, -1)
+            # direction-vector target (data_preprocessor.py:157-158); the
+            # engine made it already
+            if target is None:
+                dvec = _pose_to_dir_vec_np(sample_skel_c, spec)
+                target = (dvec.reshape(n_poses, -1)
+                          - mean_dir_vec.reshape(1, -1))
 
             ext = frame_word_indices(words, sub_start,
                                      (sample_end_time - sub_start) / n_poses,

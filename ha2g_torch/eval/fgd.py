@@ -42,6 +42,20 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
                  - 2 * np.trace(covmean))
 
 
+def pca_2d(x: np.ndarray) -> np.ndarray:
+    """The first two principal components' scores of the rows of x, in
+    float64: scikit-learn's ``PCA(n_components=2).fit_transform`` (the
+    JAX package's view) in numpy, its sign rule included (``svd_flip``
+    with ``u_based_decision=False``: each component's entry of largest
+    magnitude positive)."""
+    x = np.asarray(x, np.float64)
+    centred = x - x.mean(axis=0)
+    _, _, vt = np.linalg.svd(centred, full_matrices=False)
+    vt = vt[:2]
+    signs = np.sign(vt[np.arange(len(vt)), np.argmax(np.abs(vt), axis=1)])
+    return centred @ (vt * signs[:, None]).T
+
+
 def make_embedder(pose_dim: int, n_frames: int = 34,
                   latent_dim: int = 128) -> torch.nn.Module:
     """The reference's embedder for a pose width: MotionAE for TED
@@ -119,6 +133,22 @@ class EmbeddingSpaceEvaluator:
         feat_dist = float(np.mean(
             np.sum(np.abs(real - generated[:real.shape[0]]), axis=-1)))
         return fd, feat_dist
+
+    def get_features_for_viz(self) -> tuple[np.ndarray, np.ndarray]:
+        """A 2-D view of the real and the generated features, -> (real,
+        generated), each (n, 2), as the reference returns them
+        (embedding_space_evaluator.py:104-113): UMAP where ``umap`` imports,
+        else a 2-component PCA of both together (``pca_2d``)."""
+        generated = np.vstack(self.generated_feat_list)
+        real = np.vstack(self.real_feat_list)
+        stacked = np.vstack([generated, real])
+        try:
+            import umap  # type: ignore
+            emb = umap.UMAP().fit_transform(stacked)
+        except ImportError:
+            emb = pca_2d(stacked)
+        n = generated.shape[0]
+        return emb[n:], emb[:n]
 
     def get_diversity_scores(self, rng: Optional[np.random.Generator] = None
                              ) -> float:

@@ -6,10 +6,12 @@ calculate_motion_stats.py and calculate_angle_stats.py):
   (calculate_motion_stats.py:12-51);
 * ``angle_stats``: each angle pair's mean, variance and mean frame-to-frame
   change over windowed targets, the physical prior's constants in
-  ``skeleton.py`` (calculate_angle_stats.py:39-197).
-
-The librosa goldens of the JAX package (``make_librosa_goldens``) are not
-ported: they need librosa.
+  ``skeleton.py`` (calculate_angle_stats.py:39-197);
+* ``librosa_golden_signals`` / ``make_librosa_goldens``: the fixture
+  signals of the DSP parity protocol and their mel / onset goldens
+  computed by librosa itself, imported inside the function only (neither
+  the port nor its tests need librosa; the command fails without it, as
+  the JAX package's does).
 """
 
 from __future__ import annotations
@@ -69,3 +71,48 @@ def angle_stats(targets: np.ndarray, mean_dir_vec: np.ndarray,
     flat = angle.reshape(-1, angle.shape[-1])
     return {"avg_angle": flat.mean(0), "var_angle": flat.var(0),
             "change_angle": np.abs(np.diff(angle, axis=1)).mean((0, 1))}
+
+
+def librosa_golden_signals(sr: int = 16000) -> dict[str, np.ndarray]:
+    """The deterministic fixture signals of the goldens (4 s each): a click
+    train, a chirp, band-limited noise, speech-like AM noise and silence
+    with bursts, the cases that exercise the mel triangles' edges, the dB
+    floor and onset peak picking."""
+    rng = np.random.default_rng(20260816)
+    t = np.arange(4 * sr) / sr
+    sig = {}
+    clicks = np.zeros(4 * sr, np.float32)
+    clicks[(np.arange(8) * 0.5 * sr + 0.25 * sr).astype(int)] = 1.0
+    sig["clicks"] = clicks
+    sig["chirp"] = np.sin(
+        2 * np.pi * (200 * t + (3800 / 8.0) * t ** 2)).astype(np.float32)
+    sig["noise"] = (rng.normal(size=4 * sr) * 0.3).astype(np.float32)
+    am = (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t))
+    sig["am_noise"] = (rng.normal(size=4 * sr) * am * 0.4).astype(np.float32)
+    bursts = np.zeros(4 * sr, np.float32)
+    for s0 in (0.5, 1.7, 2.9):
+        i0 = int(s0 * sr)
+        bursts[i0:i0 + sr // 10] = rng.normal(size=sr // 10) * 0.8
+    sig["bursts"] = bursts
+    return sig
+
+
+def make_librosa_goldens(out_path: str) -> str:
+    """The goldens of ``librosa_golden_signals`` computed by librosa
+    (0.8.x, the version the reference pins): each signal's mel in dB, onset
+    envelope and onset times, written to ``out_path`` (.npz).  Reference
+    calls: scripts/utils/data_utils.py:34-38 (melspectrogram +
+    power_to_db), scripts/train.py:440 (onset_detect)."""
+    import librosa  # the goldens must come from librosa itself
+
+    out: dict[str, np.ndarray] = {"librosa_version":
+                                  np.str_(librosa.__version__)}
+    for name, y in librosa_golden_signals().items():
+        mel = librosa.feature.melspectrogram(
+            y=y, sr=16000, n_fft=1024, hop_length=512, power=2)
+        out[f"{name}/mel_db"] = librosa.power_to_db(mel, ref=np.max)
+        out[f"{name}/onset_env"] = librosa.onset.onset_strength(y=y, sr=16000)
+        out[f"{name}/onset_times"] = librosa.onset.onset_detect(
+            y=y, sr=16000, units="time")
+    np.savez(out_path, **out)
+    return out_path

@@ -21,6 +21,17 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   end of an epoch, so no step waits on a host read.
 * One ``torch.Generator`` on the device, seeded from ``random_seed``,
   drives the train steps' randomness.
+* Hooks (JAX loop.py:104-114, 277-333): ``tensorboard`` writes
+  ``train/<k>`` at each read of the metric sums (the epoch's means at the
+  global step) and ``val/<k>`` at each evaluation to
+  ``<model_save_path>/tb`` when ``torch.utils.tensorboard`` imports (else
+  a warning); ``profile_dir`` takes a ``torch.profiler`` trace of the
+  global iterations 3 to 5 of ``fit`` (CUDA activity too on the card),
+  written there as the Chrome trace ``trace.json`` (``trace.rank<r>.json``
+  under several processes), each step a ``train_step#<i>`` range;
+  ``fit(render_every=N)`` renders a validation sample against its ground
+  truth every N epochs (``render.py``), not for gesture_autoencoder and
+  only with ``save_result_video``; a failed render is logged.
 
 Every family of the JAX package: hierarchy, multimodal_context,
 speech2gesture, seq2seq, joint_embedding and gesture_autoencoder.
@@ -101,7 +112,9 @@ class Trainer:
     def __init__(self, cfg: Config, train_samples, val_samples, lang: Vocab,
                  speaker: Vocab,
                  evaluator: Optional[EmbeddingSpaceEvaluator] = None,
-                 beat_consistency_score: bool = False, device=None):
+                 beat_consistency_score: bool = False, device=None,
+                 tensorboard: bool = False,
+                 profile_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.lang = lang
@@ -136,6 +149,18 @@ class Trainer:
         # the host read of their output), the embedding, MAJE / accel / BC,
         # and the FGD statistics (np.cov + sqrtm)
         self.eval_times: dict[str, float] = {}
+        # the steps fit() has taken; the profiler traces iterations 3-5
+        self.global_iter = 0
+        self.profile_dir = profile_dir
+        self._prof = None
+        self.tb = None
+        if tensorboard and self.is_main:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb = SummaryWriter(
+                    log_dir=str(Path(cfg.model_save_path) / "tb"))
+            except ImportError:
+                logging.warning("tensorboard unavailable; scalars disabled")
 
     @property
     def is_main(self) -> bool:
@@ -232,8 +257,15 @@ class Trainer:
         sums: dict[str, torch.Tensor] = {}
         t0, n_steps, n_samples = time.perf_counter(), 0, 0
         for batch in self.train_loader:
-            metrics = self._train_step(batch, epoch)
+            if self._prof is not None:
+                with torch.profiler.record_function(
+                        f"train_step#{self.global_iter}"):
+                    metrics = self._train_step(batch, epoch)
+            else:
+                metrics = self._train_step(batch, epoch)
             self.step += 1
+            self.global_iter += 1
+            self._profile_step()
             n_steps += 1
             n_samples += batch["target"].shape[0]
             for k, v in metrics.items():
@@ -249,6 +281,9 @@ class Trainer:
             host = stacked.cpu().tolist()
         means = {k: v / n_steps for k, v in zip(keys, host)}
         sps = n_samples / max(time.perf_counter() - t0, 1e-9)
+        if self.tb is not None:
+            for k, v in means.items():
+                self.tb.add_scalar(f"train/{k}", v, self.global_iter)
         logging.info(f"[TRAIN] epoch {epoch}: " +
                      ", ".join(f"{k}: {v:.4f}" for k, v in means.items())
                      + f" ({sps:.1f} samples/s)")
@@ -268,6 +303,66 @@ class Trainer:
                 batch, self.generator, lr=self.system.lr_for_epoch(epoch))
         return self.system.train_step(batch, self.generator)
 
+    def _start_profile(self) -> None:
+        """A profiler over fit's first six steps whose schedule records
+        iterations 3-5 (2 is its warm-up, discarded: the tracer starts
+        there, so the recorded steps lose none of their first records)."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
+        # one file a rank under several processes
+        name = "trace.json" if self.mesh is None else \
+            f"trace.rank{self.mesh.rank}.json"
+        path = Path(self.profile_dir) / name
+        self._prof = profile(
+            activities=activities,
+            schedule=schedule(wait=2, warmup=1, active=3, repeat=1),
+            on_trace_ready=lambda prof: prof.export_chrome_trace(str(path)))
+        self._prof.start()
+
+    def _profile_step(self) -> None:
+        """After a step: advance the profiler's schedule; after iteration
+        5 the trace is written and the profiler stopped."""
+        if self._prof is None:
+            return
+        if self.global_iter == 6 and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.step()
+        if self.global_iter == 6:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
+
+    def render_sample(self, epoch: int, save_path: Path,
+                      n_samples: int = 1) -> list[str]:
+        """The first validation batch through the eval step, its first
+        ``n_samples`` rendered against their ground truth into
+        ``<save_path>/videos`` (reference evaluate_sample_and_save_video,
+        train.py:246-250, 510-649); -> the files written."""
+        from ha2g_torch.render import create_video_and_save
+        batch = next(iter(self.val_loader))
+        gen = torch.Generator().manual_seed(self.seed + 99_000)
+        out, _ = self.system.eval_step(dict(batch), gen)
+        out = out.float().cpu().numpy()
+        paths = []
+        for i in range(min(n_samples, out.shape[0])):
+            paths.append(create_video_and_save(
+                str(Path(save_path) / "videos"), epoch, "val", i,
+                batch["target"][i], out[i], self.cfg.mean_dir_vec_array,
+                f"epoch {epoch}", self.cfg.skeleton, audio=batch["audio"][i]))
+        return paths
+
+    def _render(self, epoch: int, save_path: Path) -> None:
+        try:
+            self.render_sample(epoch, save_path)
+        except Exception as e:  # a render never ends training (JAX too)
+            logging.warning("sample render failed: %s", e)
+
     def resume(self, path) -> int:
         """Restore parameters, batch-norm statistics, the optimisers and
         the step count from a checkpoint; -> the epoch to start at (the
@@ -285,9 +380,11 @@ class Trainer:
                                 self.speaker, extra=extra, step=self.step)
 
     def fit(self, epochs: Optional[int] = None, save_path=None,
-            resume_from: Optional[str] = None) -> list[dict]:
+            resume_from: Optional[str] = None,
+            render_every: int = 0) -> list[dict]:
         """Train ``epochs`` epochs (the config's by default), or the rest
-        of them after ``resume_from``; -> the history rows."""
+        of them after ``resume_from``; -> the history rows.  With
+        ``render_every`` N, every N-th epoch renders a sample first."""
         epochs = epochs or self.cfg.epochs
         save_path = Path(save_path or self.cfg.model_save_path)
         start_epoch = 0
@@ -308,14 +405,32 @@ class Trainer:
                 with open(history_path, "a") as f:
                     f.write(json.dumps(row) + "\n")
 
-        for epoch in range(start_epoch, epochs):
-            val = self.validate(epoch)      # evaluation first (train.py:190)
-            record(val, epoch)
-            self._track_best(val, epoch, save_path)
-            if epoch % 10 == 0 and epoch > 0:
-                self.save(save_path / f"checkpoint_{epoch:03d}",
-                          {"epoch": epoch - 1})
-            self.train_epoch(epoch)
+        self.global_iter = 0
+        if self.profile_dir is not None:
+            self._start_profile()
+        try:
+            for epoch in range(start_epoch, epochs):
+                val = self.validate(epoch)  # evaluation first (train.py:190)
+                record(val, epoch)
+                if self.tb is not None:
+                    for k, v in val.items():
+                        self.tb.add_scalar(f"val/{k}", v, epoch)
+                self._track_best(val, epoch, save_path)
+                if epoch % 10 == 0 and epoch > 0:
+                    self.save(save_path / f"checkpoint_{epoch:03d}",
+                              {"epoch": epoch - 1})
+                if (render_every and epoch % render_every == 0
+                        and self.cfg.model != "gesture_autoencoder"
+                        and self.cfg.save_result_video):
+                    with self._full_state(state=False):
+                        if self.is_main:
+                            self._render(epoch, save_path)
+                self.train_epoch(epoch)
+        finally:
+            # fewer than six steps: the trace holds the steps it recorded
+            self._stop_profile()
+        if self.tb is not None:
+            self.tb.flush()
 
         val = self.validate(epochs)
         record(val, epochs)

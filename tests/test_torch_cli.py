@@ -279,6 +279,6 @@ def test_checkpoint_and_embedder_round_trip_through_reference_bins(
 
 
 def test_unknown_command_and_model():
-    assert cli.main(["build-dataset"]) == 1
+    assert cli.main(["no-such-command"]) == 1
     with pytest.raises(ValueError, match="unknown model"):
         build_system(Config(model="nope"), 8, 2, device="cpu")

@@ -42,6 +42,15 @@ def _assert_clips_equal(a_clips, b_clips):
                 assert a[k] == b[k], k
 
 
+def _need_native_engines():
+    from ha2g_torch import native as pnative
+    from ha2g_tpu import native as jnative
+    if not pnative.available():
+        pytest.skip("no g++ on the PATH")
+    if not jnative.available():
+        pytest.skip("the JAX package's engine did not build")
+
+
 def _speakers(module, clips):
     speaker = module.Vocab("vid", insert_default_tokens=False)
     for c in clips:
@@ -49,10 +58,16 @@ def _speakers(module, clips):
     return speaker
 
 
+@pytest.mark.parametrize("use_native", (False, True),
+                         ids=("numpy", "native"))
 @pytest.mark.parametrize("name", SKELETONS)
-def test_synthetic_clips_and_windows_equal_jax(name):
+def test_synthetic_clips_and_windows_equal_jax(name, use_native):
     """The same seed gives the same clips, vocabulary and windowed
-    samples, bit for bit (the JAX package's numpy windowing path)."""
+    samples, bit for bit, through the numpy windowing path and through
+    the native engine (the same source built with the same flags in both
+    packages)."""
+    if use_native:
+        _need_native_engines()
     jspec, pspec = jsk.SKELETONS[name], psk.SKELETONS[name]
     np.testing.assert_array_equal(psyn.default_mean_dir_vec(pspec),
                                   jsyn.default_mean_dir_vec(jspec))
@@ -68,9 +83,10 @@ def test_synthetic_clips_and_windows_equal_jax(name):
     static = (6, 7) if name == "ted_expressive" else (6, 9)
     want = jds.window_clips(jc, jspec, jlang, _speakers(jvocab, jc),
                             mean_pose, mean_vec, static_joints=static,
-                            use_native=False)
+                            use_native=use_native)
     got = pds.window_clips(pc, pspec, plang, _speakers(pvocab, pc),
-                           mean_pose, mean_vec, static_joints=static)
+                           mean_pose, mean_vec, static_joints=static,
+                           use_native=use_native)
     assert len(got) == len(want) > 10
     for f in FIELDS:
         a, b = getattr(want, f), getattr(got, f)

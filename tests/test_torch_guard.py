@@ -1,7 +1,9 @@
 """The port stands alone: no module of ha2g_torch, and not chip_smoke.py,
 imports JAX, flax, msgpack, the JAX package, or what the card's machine
-lacks (pyarrow, lmdb, fasttext, PyYAML, matplotlib) (checked with ast,
-without importing), and its entry points (the systems, the evaluator, the
+lacks (pyarrow, lmdb, fasttext, PyYAML, matplotlib, Pillow, scikit-learn)
+(checked with ast, without importing); librosa only inside
+``tools.make_librosa_goldens``; the command line has every command of the
+JAX package's; and its entry points (the systems, the evaluator, the
 trainer, the serving service, the command line) need CUDA unless the
 caller asks for the CPU; the host-only commands need no device."""
 
@@ -15,7 +17,11 @@ import tests.torch_cpu  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "ha2g_tpu",
-             "pyarrow", "lmdb", "fasttext", "yaml", "matplotlib"}
+             "pyarrow", "lmdb", "fasttext", "yaml", "matplotlib", "PIL",
+             "sklearn"}
+# the one import outside these sets that a port module may make, and
+# where: (file, function) -> module; the goldens must come from librosa
+FUNCTION_IMPORTS = {("tools.py", "make_librosa_goldens"): "librosa"}
 # what the port may import at module level besides the standard library
 # and itself
 ALLOWED_THIRD_PARTY = {"torch", "numpy", "einops"}
@@ -36,7 +42,12 @@ PORT_MODULES = ("config.py", "convert.py", "kernels.py", "skeleton.py",
                 "reference_ckpt.py", "serve.py", "tts_align.py",
                 "data/lmdb_mini.py", "data/arrow_legacy.py",
                 "data/lmdb_import.py", "data/fasttext_bin.py", "data/h36m.py",
-                "tools.py", "eval/trajectory.py")
+                "tools.py", "eval/trajectory.py", "render.py",
+                "utils/image.py", "native/__init__.py",
+                "dataset_pipeline/__init__.py",
+                "dataset_pipeline/filtering.py",
+                "dataset_pipeline/assemble.py", "dataset_pipeline/runners.py",
+                "dataset_pipeline/pipeline.py", "dataset_pipeline/report.py")
 
 
 def _port_files():
@@ -61,6 +72,32 @@ def test_port_imports_nothing_of_jax():
         tree = ast.parse(path.read_text(), filename=str(path))
         bad = {name for _, name in _imports(tree) if name in FORBIDDEN}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_librosa_only_inside_make_librosa_goldens():
+    """librosa (on neither machine) is imported in one function only, and
+    nothing else outside the standard library, torch, numpy, einops and
+    the port is imported inside a port function, but scipy (on both
+    machines) and the optional packages the JAX package also gates:
+    scenedetect and umap (tensorboard's writer comes from torch)."""
+    import sys
+    optional = {"scipy", "scenedetect", "umap"}
+    stdlib = set(sys.stdlib_module_names)
+    found = {}
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for _, name in _imports(fn):
+                if (name in stdlib or name in ALLOWED_THIRD_PARTY
+                        or name in optional or name == "ha2g_torch"):
+                    continue
+                key = (str(path.relative_to(ROOT / "ha2g_torch"))
+                       if path.name != "chip_smoke.py" else path.name,
+                       fn.name)
+                found[key] = name
+    assert found == FUNCTION_IMPORTS
 
 
 def test_module_level_imports_are_torch_numpy_einops_stdlib():
@@ -130,10 +167,30 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     # such, not for the device
     for argv in (["import-lmdb", "missing", "out"],
                  ["motion-stats", "missing"],
-                 ["compare-trajectory", "missing.jsonl"]):
+                 ["compare-trajectory", "missing.jsonl"],
+                 ["build-dataset", "--video-ids", "missing.txt", "--work",
+                  "w", "--out", "o"]):
         with pytest.raises(FileNotFoundError):
             cli.main(argv)
 
     from ha2g_torch.serve import GestureService
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GestureService("checkpoint")
+
+
+def test_cli_has_every_command_of_the_jax_cli(capsys):
+    """Every command of the JAX command line (its ``cmds`` table in
+    ``main``, read with ast) is one of the port's, and the usage line
+    lists them."""
+    from ha2g_torch import cli
+    tree = ast.parse((ROOT / "ha2g_tpu" / "cli.py").read_text())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    table = next(n.value for n in ast.walk(main)
+                 if isinstance(n, ast.Assign) and n.targets[0].id == "cmds")
+    jax_commands = {k.value for k in table.keys}
+    assert len(jax_commands) == 17
+    assert jax_commands <= set(cli.COMMANDS)
+    assert cli.main([]) == 1
+    usage = capsys.readouterr().err
+    assert all(c in usage for c in jax_commands)

@@ -153,7 +153,16 @@ def test_cli_import_source_refuses_cache_options(stores, tmp_path):
                   str(tmp_path / "out"), "--max_words", "6"])
 
 
-def test_window_clips_equals_jax():
+@pytest.mark.parametrize("use_native", (False, True),
+                         ids=("numpy", "native"))
+def test_window_clips_equals_jax(use_native):
+    if use_native:
+        from ha2g_torch import native as pnative
+        from ha2g_tpu import native as jnative
+        if not pnative.available():
+            pytest.skip("no g++ on the PATH")
+        if not jnative.available():
+            pytest.skip("the JAX package's engine did not build")
     clips = synthetic_clips(jsk.TED_GESTURE, n_clips=3, clip_seconds=6.0,
                             n_speakers=2, seed=4)
     # a still clip the motion filter rejects
@@ -166,10 +175,9 @@ def test_window_clips_equals_jax():
         speaker = vocab.Vocab("vid", insert_default_tokens=False)
         for c in clips:
             speaker.index_word(c["vid"])
-        kw = dict(use_native=False) if ds is jds else {}
         samples.append(ds.window_clips(
             clips, spec, lang, speaker, np.zeros(30, np.float32),
-            default_mean_dir_vec(jsk.TED_GESTURE), **kw))
+            default_mean_dir_vec(jsk.TED_GESTURE), use_native=use_native))
     got, want = samples
     for k in pli.SAMPLE_KEYS:
         assert getattr(got, k).dtype == getattr(want, k).dtype, k
