@@ -23,7 +23,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (hidden 300, 4-layer bi-GRU, full SE-ResNet, bf16 compute, random
    weights from a seed): output shape, finiteness and the B1 launch counts
    of every request; then the card's fp32 result against the same port on
-   the CPU (plain versions) for a short clip;
+   the CPU (plain versions) for a short clip, and the CPU's FLOP count
+   (``utils/roofline.count_flops``) of one window;
 4. training: HierarchySystem.train_step of the same hierarchy with
    configs_expressive/hierarchy.yaml (batch 96, bf16, every loss weight),
    one warm-up step and four GAN steps on random batches, then of the
@@ -32,17 +33,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    loss term finite, the launch counts of B1 (forward, backward calls and
    backward kernel) and B2-B4 of every step against the dataflow's, step
    times and peak memory; one GAN step of each under torch.profiler, with
-   B2-B4's share of its device time; then an fp32 step of a narrow
-   hierarchy on the card against the same port on the CPU, every loss and
-   gradient;
+   B2-B4's share of its device time, and the FLOPs of a GAN step; then an
+   fp32 step of a narrow hierarchy on the card against the same port on
+   the CPU, every loss and gradient, and the two FLOP counts equal;
 5. times on the card: end-to-end ms per request and, under
    torch.profiler, where its device time goes and the device's idle
    share; each kernel (CUDA events, median), its bound, its plain
    version, and the library call that computes the same function where
-   there is one; B1 forward at B = 1, 8, 16, 96 with its clusters'
-   occupancy; B1's backward kernel and whole backward call; B2-B4's
-   device time a launch (profiler) and the epilogue's instructions a pair
-   in their SASS;
+   there is one; B1 forward at B = 1, 8, 16, 96 and 256 with its
+   clusters' occupancy and waves; B1's backward kernel and whole backward
+   call; B2-B4's device time a launch (profiler) and the epilogue's
+   instructions a pair in their SASS;
 6. the training driver: the pinned-memory train loader on the card
    against the host gather; then ``python -m ha2g_torch.cli`` in process
    at full width (configs_expressive/hierarchy.yaml, batch 96, bf16) on
@@ -149,7 +150,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    reader, the tensorboard writer or its warning, ``get_features_for_viz``
    (n, 2) twice; ``cli synthesize --render`` from the checkpoint (B1 at
    24 launches a window); B1, its backward and B2-B4 against their plain
-   versions at the phase's shapes.
+   versions at the phase's shapes;
+14. the JAX benchmark's synthesis batch (bench.py:131-138): 256 clips of
+   20 s of mu-law noise (81.9 MB up, 10 windows, 77,824 pose frames a
+   call) through one ``prepare_fused`` and ``run_fused`` at chunk 0 and
+   128, each with a float32 and a float16 pull, on phase 3's full-width
+   bf16 hierarchy: ms a call (host clock, ending in the host array; the
+   headline chunk 128 / float16 10 times, the others 3), pose frames/s,
+   peak device memory, B1's launches (240 / 480 a call, checked); each
+   float16 pull within float16 rounding of its float32 pull; a profile of
+   the headline call (device busy, idle share, the ms its copies ran
+   beside kernels); its MFU and the phase-4 GAN steps' (``count_flops``,
+   ``mfu_line``); one window's FLOPs on the card equal to phase 3's CPU
+   count; chunks of 3 at B = 8 in fp32 (z at mu) within 1e-4 of one call.
+   B1 at (34, 256, 300) is held against its plain version in phase 2 and
+   timed in phase 5.
 
 The second-to-last line is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or outside a
@@ -158,6 +173,7 @@ checkout, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import statistics
@@ -301,12 +317,13 @@ def _b1_inputs(T, B, H, dtype, seed=0):
 # H = 64 on 28 steps, the seq2seq encoder's H = 200, and sequences as
 # short as 2 and 17 steps),
 # one and several row groups (97: a ragged last group), hidden sizes whose
-# last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48)
+# last cluster slice is ragged (300 = 7 * 38 + 34, 200, 45, 48); and the
+# benchmark batch's 256 clips unchunked (phase 14; 32 clusters, 3 waves)
 B1_SHAPES = ((34, 1, 300), (34, 4, 300), (34, 8, 300), (34, 16, 300),
              (34, 96, 300), (34, 97, 300), (7, 3, 48), (11, 5, 200),
              (6, 16, 45), (34, 128, 300), (28, 128, 64), (32, 1, 200),
              (32, 4, 200), (32, 8, 200), (32, 128, 200), (17, 128, 200),
-             (2, 128, 200), (34, 48, 300))
+             (2, 128, 200), (34, 48, 300), (34, 256, 300))
 # the backward also at the Gesture step's batch 256 and at 113 and 200,
 # whose last 32-row cluster in bf16 is ragged (17 and 8 rows)
 B1_BWD_SHAPES = ((34, 96, 300), (34, 97, 300), (11, 5, 200), (34, 128, 300),
@@ -407,14 +424,16 @@ def _b1_times(T, B, H, dtype):
     n_bytes = sum(a.numel() for a in args) * elem + T * 2 * B * H * elem
     flops = 2 * T * 2 * B * H * 3 * H + 12 * T * 2 * B * H
     bound_ms, bound_by = _bound(n_bytes, flops, dtype)
+    clusters = cluster_plan(H, B, dtype)["clusters"]
+    active = max_active_clusters(B, H, dtype)
+    waves = -(-clusters // active)
     _line("b1-time", T=T, B=B, H=H, dtype=str(dtype)[6:], ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
-          bytes=n_bytes, flops=flops,
-          clusters=cluster_plan(H, B, dtype)["clusters"],
-          max_active_clusters=max_active_clusters(B, H, dtype))
+          bytes=n_bytes, flops=flops, clusters=clusters,
+          max_active_clusters=active, waves=waves)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "waves": waves}
 
 
 def _rel(got, want) -> float:
@@ -869,11 +888,12 @@ def _profile(name, fn, e2e_ms, kernels=("b1",), want=None, tries=3):
 PROFILE_PAD_S = 0.05
 
 
-def _device_kernels(fn, window=None, pad=PROFILE_PAD_S):
+def _device_kernels(fn, window=None, pad=PROFILE_PAD_S, spans=None):
     """One call of fn under torch.profiler, padded with ``pad`` seconds of
     host time at each end -> {kernel name: (device ms, launches)}.  A dict
     passed as ``window`` gets the first start and last end, in the
-    profiler's microseconds, of its host and device events."""
+    profiler's microseconds, of its host and device events; a list passed
+    as ``spans`` gets (name, start, end) of every device event counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -893,11 +913,13 @@ def _device_kernels(fn, window=None, pad=PROFILE_PAD_S):
         if on_card and not e.is_user_annotation:
             ms, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+            if spans is not None:
+                spans.append((e.name, e.time_range.start, e.time_range.end))
     if window is not None:
-        for side, spans in ends.items():
-            if spans:
-                window[f"{side}_us"] = (f"{min(a for a, _ in spans):.0f}-"
-                                        f"{max(b for _, b in spans):.0f}")
+        for side, found in ends.items():
+            if found:
+                window[f"{side}_us"] = (f"{min(a for a, _ in found):.0f}-"
+                                        f"{max(b for _, b in found):.0f}")
     return per_name
 
 
@@ -932,10 +954,15 @@ def _vocab():
     return lang
 
 
+# one window: a clip shorter than a window's 34 / 15 s
+WINDOW_SECONDS = 2.0
+
+
 def _slice():
     from ha2g_torch.ops.gru_kernel import gru_recurrence
     from ha2g_torch.synthesis import _window_layout, make_synthesizer
     from ha2g_torch.train.hierarchy import HierarchySystem
+    from ha2g_torch.utils.roofline import count_flops
 
     cfg = _config("bfloat16")
     spec = cfg.skeleton
@@ -1001,7 +1028,15 @@ def _slice():
     state = cpu.state_dict()
     a, w, v = _requests(1, 4.0, 3)
     noise = lambda: torch.Generator().manual_seed(11)
-    want = make_synthesizer(cpu, state).generate(a, w, lang, v, noise())
+    synth_cpu = make_synthesizer(cpu, state)
+    want = synth_cpu.generate(a, w, lang, v, noise())
+    # the FLOPs of one full-width window on the CPU (plain versions); phase
+    # 14 counts the same call on the card
+    window_flops = count_flops(synth_cpu.generate_fused,
+                               *_requests(1, WINDOW_SECONDS, 4)[:2], lang,
+                               np.array([1]), noise())
+    _line("slice-window-flops-cpu", seconds=WINDOW_SECONDS,
+          flops=f"{window_flops:.0f}")
     synth32 = make_synthesizer(gpu, state)
     for path in ("generate", "generate_fused"):
         got = getattr(synth32, path)(a, w, lang, v, noise())
@@ -1012,7 +1047,7 @@ def _slice():
         if not ok:
             raise AssertionError(f"fp32 {path} on the card disagrees with "
                                  "the CPU")
-    del cpu, gpu, synth32
+    del cpu, gpu, synth32, synth_cpu
 
     e2e = {}
     for name, (_, _, B, fn) in (("generate_B1", runs[0]),
@@ -1025,7 +1060,7 @@ def _slice():
     for name, i in (("generate_B1", 0), ("generate_B8", 1),
                     ("generate_fused_B8", 4)):
         _profile(name, runs[i][3], e2e[name][1])
-    return main_path_launches, W * per_window, e2e
+    return main_path_launches, W * per_window, e2e, window_flops
 
 
 # ---------------------------------------------------------------------------
@@ -1100,9 +1135,11 @@ def _train(config, steps):
     file (``config``, relative to the checkout; ``steps`` the gan_on of
     each): launch counts, finite losses, times, memory and a profile of one
     GAN step with B2-B4's share of its device time.  Returns the kernels'
-    launch counts over the steps and the median GAN step's ms."""
+    launch counts over the steps, the median GAN step's ms and the FLOPs
+    of a GAN step (``count_flops``)."""
     from ha2g_torch.config import Config
     from ha2g_torch.train.hierarchy import HierarchySystem
+    from ha2g_torch.utils.roofline import count_flops
 
     cfg = Config.from_yaml(ROOT / config)
     B = cfg.batch_size
@@ -1164,9 +1201,13 @@ def _train(config, steps):
                  for k in ("b2", "b3", "b4")},
               b234_device_ms=f"{b234_ms:.3f}", device_busy_ms=f"{busy:.2f}",
               share=f"{b234_ms / busy:.4f}")
+    # the FLOPs of one GAN step, for its MFU (phase 14 prints the line)
+    flops = count_flops(system.train_step, _train_batch(cfg, B, 201), True,
+                        gen)
+    _line("train-flops", config=config, gan_step_flops=f"{flops:.0f}")
     del system
     torch.cuda.empty_cache()
-    return main_path, gan_ms
+    return main_path, gan_ms, flops
 
 
 def _train_card_vs_cpu():
@@ -1176,6 +1217,7 @@ def _train_card_vs_cpu():
     permutation, dropout 0; every loss term and every gradient."""
     from ha2g_torch.config import Config
     from ha2g_torch.train.hierarchy import HierarchySystem
+    from ha2g_torch.utils.roofline import count_flops
 
     cfg = Config.from_yaml(ROOT / "configs_expressive" / "hierarchy.yaml",
                            compute_dtype="float32", hidden_size=64,
@@ -1193,8 +1235,14 @@ def _train_card_vs_cpu():
     gpu.load_state_dict(cpu.state_dict())
     batch = _train_batch(cfg, 8, 7)
     rand_vids = torch.from_numpy(np.roll(batch["vids"], 1))
-    got = [s.train_step(batch, True, torch.Generator().manual_seed(4),
-                        rand_vids=rand_vids) for s in (cpu, gpu)]
+    # each step under count_flops: the CPU (plain versions) and the card
+    # (kernels, the backward on the autograd engine's thread) count alike
+    got, flops = [], []
+    for s in (cpu, gpu):
+        got.append({})
+        flops.append(count_flops(lambda: got[-1].update(s.train_step(
+            batch, True, torch.Generator().manual_seed(4),
+            rand_vids=rand_vids))))
     worst_metric = max(abs(float(got[1][k]) / float(got[0][k]) - 1)
                        for k in got[0])
     worst = {"audio": 0.0, "other": 0.0}
@@ -1209,7 +1257,7 @@ def _train_card_vs_cpu():
             continue
         group = "audio" if key.startswith("audio.") else "other"
         worst[group] = max(worst[group], _rel(have.cpu(), want))
-    ok = (got[0].keys() == got[1].keys()
+    ok = (got[0].keys() == got[1].keys() and flops[0] == flops[1]
           and worst_metric <= TRAIN_METRIC_RTOL
           and worst["audio"] <= TRAIN_AUDIO_GRAD_REL
           and worst["other"] <= TRAIN_GRAD_REL)
@@ -1219,7 +1267,8 @@ def _train_card_vs_cpu():
           grad_rel_err_audio=f"{worst['audio']:.2e}",
           grad_rel_err_other=f"{worst['other']:.2e}",
           tol=f"{TRAIN_METRIC_RTOL:.0e}/{TRAIN_AUDIO_GRAD_REL:.0e}/"
-              f"{TRAIN_GRAD_REL:.0e}", ok=ok)
+              f"{TRAIN_GRAD_REL:.0e}", flops_cpu=f"{flops[0]:.0f}",
+          flops_card=f"{flops[1]:.0f}", ok=ok)
     if not ok:
         raise AssertionError("the fp32 train step on the card disagrees with "
                              "the CPU")
@@ -3981,6 +4030,237 @@ def _last_modules(work: Path, card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the benchmark's synthesis batch
+# ---------------------------------------------------------------------------
+
+# the JAX package's benchmark workload (bench.py:131-138): 256 clips of 20 s
+# of mu-law audio, one prepare_fused, run_fused at chunk 128 with a float16
+# pull (the headline) beside chunk 0 and float32
+BENCH_CLIPS = 256
+BENCH_CHUNK = 128
+# timed calls of the headline and of the other variants, after a first
+# call of each (the one the checks read)
+BENCH_REPS = {True: 10, False: 3}
+# a float16 pull against the float32 pull of the same call: float16
+# rounding, half a step of 2^-10 relative
+F16_REL, F16_ABS = 2.0 ** -11, 1e-7
+# chunked against unchunked at B = 8 in fp32 (z at mu): cuDNN may take
+# another algorithm at another batch
+CHUNK_FP32_ATOL = 1e-4
+
+
+def _intervals_union(spans):
+    """Merged (start, end) intervals of ``spans``."""
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _copy_overlap(fn):
+    """One call of fn under torch.profiler -> {kernels, copies, device busy
+    ms (the union of every device interval), copy ms, the ms during which
+    a copy ran beside a kernel, and (device ms, count) by name, largest
+    first}, or None without device events."""
+    spans = []
+    per_name = _device_kernels(fn, spans=spans)
+    copies = [(a, b) for name, a, b in spans if name.startswith("Memcpy")]
+    kernels = [(a, b) for name, a, b in spans
+               if not name.startswith("Memcpy")]
+    if not kernels:
+        return None
+    running = _intervals_union(kernels)
+    starts = [c for c, _ in running]
+    overlap = 0.0
+    for a, b in copies:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(running) and running[i][0] < b:
+            overlap += max(0.0, min(b, running[i][1]) - max(a, running[i][0]))
+            i += 1
+    return {"kernels": len(kernels), "copies": len(copies),
+            "busy_ms": sum(b - a for a, b in
+                           _intervals_union(kernels + copies)) / 1e3,
+            "copy_ms": sum(b - a for a, b in copies) / 1e3,
+            "overlap_ms": overlap / 1e3,
+            "by_name": sorted(per_name.items(), key=lambda kv: -kv[1][0])}
+
+
+def _pinned_synthesizer(compute_dtype):
+    """Phase 3's full-width hierarchy (seed-0 weights) with speaker z
+    pinned at mu (logvar weight 0, bias -100): the same operations, and a
+    result that does not depend on how the batch is split."""
+    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.train.hierarchy import HierarchySystem
+    cfg = _config(compute_dtype)
+    system = HierarchySystem(cfg, N_WORDS, N_SPEAKERS,
+                             generator=torch.Generator().manual_seed(0))
+    state = system.state_dict()
+    for level in range(cfg.skeleton.n_levels):
+        state[f"gens.{level}.speaker_logvar.weight"].zero_()
+        state[f"gens.{level}.speaker_logvar.bias"].fill_(-100.0)
+    return cfg, make_synthesizer(system, state)
+
+
+def _chunked_fp32_check(lang):
+    """run_fused at B = 8 in fp32 on the card, speaker z pinned at mu:
+    chunks of 3 (a ragged last chunk of 2) against one call."""
+    _, synth = _pinned_synthesizer("float32")
+    audio, words, vids = _requests(8, CLIP_SECONDS, 21)
+    plan = synth.prepare_fused(words, lang, vids, audio.shape[1])
+    one = synth.run_fused(audio, plan)
+    chunked = synth.run_fused(audio, plan, chunk=3)
+    err = float(np.abs(chunked - one).max())
+    ok = chunked.shape == one.shape and err <= CHUNK_FP32_ATOL
+    _line("bench-chunk-fp32", B=8, chunk=3, max_abs_err=f"{err:.3e}",
+          tol=f"{CHUNK_FP32_ATOL:.0e}", ok=ok)
+    if not ok:
+        raise AssertionError("chunked run_fused disagrees with one call")
+
+
+def _bench_batch(card, window_flops_cpu, gan):
+    """Phase 14: the JAX benchmark's batch (256 x 20 s mu-law clips, one
+    plan) through run_fused at chunk 0 / 128 with float32 / float16 pulls
+    on the full-width Expressive hierarchy (bf16, seed-0 weights, speaker
+    z pinned at mu): ms a call by the host clock ending in the host array,
+    pose frames/s, peak device memory, B1's launches a call (checked); the
+    float16 pulls within float16 rounding of the float32 ones; a profile of the headline
+    call (device busy, idle share, copies beside kernels); its MFU, and
+    the GAN step's (``gan``: config -> (FLOPs, ms)); the chunked fp32 call
+    at B = 8 against one call; the card's FLOPs of one window against the
+    CPU's (phase 3).  -> launch counts."""
+    from ha2g_torch.ops.mel import mulaw_encode_np
+    from ha2g_torch.synthesis import _window_layout
+    from ha2g_torch.utils.roofline import count_flops, mfu_line
+
+    t0 = time.perf_counter()
+    cfg, synth = _pinned_synthesizer("bfloat16")
+    lang = _vocab()
+    audio, words, vids = _requests(BENCH_CLIPS, CLIP_SECONDS, 14)
+    audio = mulaw_encode_np(audio)
+    _, _, W = _window_layout(cfg, CLIP_SECONDS)
+    per_call = W * cfg.skeleton.n_levels * cfg.n_layers
+    frames = BENCH_CLIPS * (cfg.n_poses + (W - 1)
+                            * (cfg.n_poses - cfg.n_pre_poses))
+    _line("bench-batch", clips=BENCH_CLIPS, seconds=CLIP_SECONDS,
+          upload_mb=f"{audio.nbytes / 1e6:.1f}", windows=W,
+          pose_frames=frames, card=card)
+
+    _reset_counts()
+    plan = synth.prepare_fused(words, lang, vids, audio.shape[1])
+    outs, times = {}, {}
+    for chunk in (0, BENCH_CHUNK):
+        for half in (False, True):
+            out_dtype = np.float16 if half else None
+            call = lambda: synth.run_fused(audio, plan, chunk=chunk,
+                                           out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = _read_counts()["b1"]
+            outs[(chunk, half)] = out = call()
+            launches = _read_counts()["b1"] - before
+            want = per_call * (-(-BENCH_CLIPS // chunk) if chunk else 1)
+            ms = []
+            for _ in range(BENCH_REPS[chunk == BENCH_CHUNK and half]):
+                t = time.perf_counter()
+                call()
+                ms.append((time.perf_counter() - t) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            times[(chunk, half)] = med = statistics.median(ms)
+            ok = (out.dtype == np.float32 and out.shape[0] == BENCH_CLIPS
+                  and out.shape[1] * BENCH_CLIPS == frames
+                  and bool(np.isfinite(out).all()) and launches == want)
+            _line("bench-run", chunk=chunk,
+                  pull="float16" if half else "float32", calls=len(ms),
+                  ms_median=f"{med:.2f}", ms_min=f"{min(ms):.2f}",
+                  ms_max=f"{max(ms):.2f}",
+                  frames_per_s=f"{frames / med * 1e3:.0f}",
+                  peak_memory_gib=f"{peak:.2f}",
+                  b1_launches=f"{launches}/{want}", ok=ok, card=card)
+            if not ok:
+                raise AssertionError(f"run_fused chunk={chunk} half={half} "
+                                     "failed its checks")
+    # the float16 pull is the float32 pull of the same call, rounded
+    for chunk in (0, BENCH_CHUNK):
+        full, half = outs[(chunk, False)], outs[(chunk, True)]
+        excess = float(np.max(np.abs(half - full)
+                              - (F16_REL * np.abs(full) + F16_ABS)))
+        ok = excess <= 0.0
+        _line("bench-f16-pull", chunk=chunk,
+              max_abs_err=f"{np.abs(half - full).max():.3e}",
+              worst_excess_over_bound=f"{excess:.3e}", ok=ok)
+        if not ok:
+            raise AssertionError(f"the float16 pull at chunk={chunk} is not "
+                                 "the float32 pull rounded")
+    # chunked against unchunked in bf16: informative (with z at mu, the
+    # encoder's and the cascade's products at another batch, rounded to
+    # bf16, are all that differs)
+    for half in (False, True):
+        a, b = outs[(BENCH_CHUNK, half)], outs[(0, half)]
+        _line("bench-chunk-vs-one-bf16", pull="float16" if half else
+              "float32", equal=bool(np.array_equal(a, b)),
+              unequal_share=f"{np.mean(a != b):.4f}",
+              max_abs_err=f"{np.abs(a - b).max():.3e}")
+
+    headline = lambda: synth.run_fused(audio, plan, chunk=BENCH_CHUNK,
+                                       out_dtype=np.float16)
+    e2e = times[(BENCH_CHUNK, True)]
+    for chunk, half in ((0, False), (BENCH_CHUNK, True)):
+        pull = "float16" if half else "float32"
+        prof = _copy_overlap(lambda: synth.run_fused(
+            audio, plan, chunk=chunk,
+            out_dtype=np.float16 if half else None))
+        if prof is None:
+            _line("bench-profile", chunk=chunk, pull=pull,
+                  device_busy_ms="not measured",
+                  reason="the profiler recorded no device events")
+            continue
+        wall = times[(chunk, half)]
+        _line("bench-profile", chunk=chunk, pull=pull, e2e_ms=f"{wall:.2f}",
+              device_busy_ms=f"{prof['busy_ms']:.2f}",
+              idle_share=f"{1 - prof['busy_ms'] / wall:.3f}",
+              kernels=prof["kernels"], copies=prof["copies"],
+              copy_ms=f"{prof['copy_ms']:.2f}",
+              copy_beside_kernel_ms=f"{prof['overlap_ms']:.2f}", card=card)
+        for name, (ms, n) in prof["by_name"][:10]:
+            _line("bench-profile-top", chunk=chunk, pull=pull,
+                  ms=f"{ms:.2f}", count=n, name=name[:90].replace(" ", "_"))
+        for name, (ms, n) in prof["by_name"]:
+            if name.startswith("Memcpy"):
+                _line("bench-profile-copy", chunk=chunk, pull=pull,
+                      ms=f"{ms:.3f}", count=n, name=name.replace(" ", "_"))
+    flops = count_flops(headline)
+    _line("bench-mfu", chunk=BENCH_CHUNK, pull="float16",
+          flops=f"{flops:.0f}", line=f"'{mfu_line(flops, e2e / 1e3)}'")
+    for config, (step_flops, step_ms) in gan.items():
+        _line("train-mfu", config=config, gan_step_ms=f"{step_ms:.1f}",
+              flops=f"{step_flops:.0f}",
+              line=f"'{mfu_line(step_flops, step_ms / 1e3)}'")
+    counts = {"bench-batch": _read_counts()}
+
+    # one window's FLOPs on the card against the CPU's (phase 3)
+    _reset_counts()
+    window = count_flops(synth.generate_fused,
+                         *_requests(1, WINDOW_SECONDS, 4)[:2], lang,
+                         np.array([1]), torch.Generator().manual_seed(11))
+    ok = window == window_flops_cpu
+    _line("bench-window-flops", card=f"{window:.0f}",
+          cpu=f"{window_flops_cpu:.0f}", ok=ok)
+    if not ok:
+        raise AssertionError("one window counts other FLOPs on the card "
+                             "than on the CPU")
+    del synth
+    torch.cuda.empty_cache()
+    _chunked_fp32_check(lang)
+    counts["bench-checks"] = _read_counts()
+    _line("bench-phase", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: v["b1"] for k, v in counts.items()}, card=card)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4021,15 +4301,16 @@ def main() -> int:
 
     # phase 3: the serving path
     _reset_counts()
-    serving_b1, per_request, e2e = _slice()
+    serving_b1, per_request, e2e, window_flops = _slice()
     serving = {**_read_counts(), "b1": serving_b1}
     if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
         raise AssertionError("training kernels launched while serving")
 
     # phase 4: the training path, each run read on its own
-    runs, bare_gan_ms = {}, {}
+    runs, bare_gan_ms, gan_flops = {}, {}, {}
     for config, steps in TRAIN_RUNS:
-        runs[config], bare_gan_ms[config] = _train(config, steps)
+        runs[config], bare_gan_ms[config], gan_flops[config] = _train(
+            config, steps)
     training = {k: sum(r[k] for r in runs.values()) for k in serving}
     _train_card_vs_cpu()
 
@@ -4047,6 +4328,9 @@ def main() -> int:
               share=f"{b1_ms / ms:.3f}")
     bwd = {dtype: _b1_backward_times(dtype)
            for dtype in (torch.bfloat16, torch.float32)}
+    # the benchmark batch's 256 clips unchunked (phase 14)
+    b256 = {dtype: _b1_times(34, 256, 300, dtype)
+            for dtype in (torch.bfloat16, torch.float32)}
     # the baselines' train shapes: batch 128, the multimodal generator's
     # H = 300 and its discriminator's H = 64 (28 steps)
     for T, H in ((34, 300), (28, 64)):
@@ -4109,13 +4393,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         baselines.update(_last_modules(Path(tmp), smi))
 
+    # phase 14: the benchmark's synthesis batch (256 x 20 s mu-law clips,
+    # chunk 0 / 128, float32 / float16 pulls), FLOPs and MFU
+    baselines.update(_bench_batch(smi, window_flops, {
+        c: (gan_flops[c], bare_gan_ms[c]) for c in gan_flops}))
+
     print(smi, flush=True)
     by_path = lambda k: {"serving": serving[k], **{
         f"training:{config}": run[k] for config, run in runs.items()},
         "training:cli": cli_counts[k], **{
             path: n if k == "b1" else 0 for path, n in serve_paths.items()},
         **{path: c[k] for path, c in baselines.items()}}
-    # phases 9 to 13
+    # phases 9 to 14
     phase9 = lambda k: sum(c[k] for c in baselines.values())
     entries = [{
         "name": "gru_recurrence", "route": "cuda",
@@ -4127,7 +4416,12 @@ def main() -> int:
         "max_abs_err": errs[(34, 8, 300, torch.bfloat16)],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}]
+        "library_ms": main["library_ms"],
+        "ms_B256": b256[torch.bfloat16]["ms"],
+        "bound_ms_B256": b256[torch.bfloat16]["bound_ms"],
+        "library_ms_B256": b256[torch.bfloat16]["library_ms"],
+        "waves_B256": b256[torch.bfloat16]["waves"],
+        "max_abs_err_B256": errs[(34, 256, 300, torch.bfloat16)]}]
     t = bwd[torch.bfloat16]
     entries.append({
         "name": "gru_recurrence_backward", "route": "cuda",

@@ -50,3 +50,14 @@ def load_clips(path) -> list[dict]:
         "audio_spec": arrays[f"spec_{i}"].astype(np.float32)
         if m["has_spec"] else None,
     } for i, m in enumerate(meta)]
+
+
+def merge_clips(src_dirs, out_dir) -> int:
+    """Concatenate clip stores into one, in the order given (the
+    reference's dataset_script/script/merge_dataset.py); -> the clip
+    count."""
+    clips = []
+    for d in src_dirs:
+        clips.extend(load_clips(d))
+    save_clips(out_dir, clips)
+    return len(clips)

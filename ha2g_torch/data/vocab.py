@@ -34,6 +34,12 @@ def normalize_string(s: str) -> str:
     return re.sub(r"\s+", r" ", s).strip()
 
 
+def remove_tags_marks(text: str) -> str:
+    """Drop <...> tags and the marks . , : ; ! ? (the JAX package's
+    data/vocab.py:36)."""
+    return re.sub(r"<.*?>|[.,:;!?]+", "", text)
+
+
 class Vocab:
     """Word <-> index mapping; unknown words map to UNK."""
 

@@ -34,6 +34,7 @@ import struct
 import torch
 
 from ha2g_torch import kernels
+from ha2g_torch.utils.roofline import kernel_call
 
 SOURCE = kernels.CSRC / "contrastive.cu"
 MAX_DIM = 512
@@ -193,23 +194,37 @@ def contrastive_bwd_db_plain(a, b, logz, g_over_n):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def fwd_flops(N: int, D: int) -> int:
+    """B2's FLOPs (``utils/roofline.py``): FlopCounterMode's count of its
+    plain version, the (N, D) x (D, N) product."""
+    return 2 * N * N * D
+
+
+def bwd_flops(N: int, D: int) -> int:
+    """B3's or B4's FLOPs: FlopCounterMode's count of the plain version,
+    s recomputed and ds times b (or a), two (N, N, D) products."""
+    return 4 * N * N * D
+
+
 def contrastive_fwd(a, b):
     """B2: (logz, diag), each (N,) float32."""
     N, D = _check(a, b)
-    if not _on_card("contrastive_fwd", a, b):
-        return contrastive_fwd_plain(a, b)
-    dev = a.device
-    a, b = _rows_for_kernel(a, b)
-    D4 = a.shape[1]
-    S = splits(0, N, D4, dev.index)
-    logz = torch.empty(N, dtype=torch.float32, device=dev)
-    diag = torch.empty_like(logz)
-    part = torch.empty(3 * S * N, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        counters = _counters(dev, -(-N // TILE))
-        err = _lib().ha2g_contrastive_fwd(
-            a.data_ptr(), b.data_ptr(), logz.data_ptr(), diag.data_ptr(),
-            part.data_ptr(), counters.data_ptr(), N, D4, S, _stream_of(dev))
+    with kernel_call(fwd_flops(N, D)):
+        if not _on_card("contrastive_fwd", a, b):
+            return contrastive_fwd_plain(a, b)
+        dev = a.device
+        a, b = _rows_for_kernel(a, b)
+        D4 = a.shape[1]
+        S = splits(0, N, D4, dev.index)
+        logz = torch.empty(N, dtype=torch.float32, device=dev)
+        diag = torch.empty_like(logz)
+        part = torch.empty(3 * S * N, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            counters = _counters(dev, -(-N // TILE))
+            err = _lib().ha2g_contrastive_fwd(
+                a.data_ptr(), b.data_ptr(), logz.data_ptr(), diag.data_ptr(),
+                part.data_ptr(), counters.data_ptr(), N, D4, S,
+                _stream_of(dev))
     _raise_on(err, "contrastive_fwd")
     contrastive_fwd.launches += 1
     return logz, diag
@@ -222,20 +237,21 @@ def _bwd(wrapper, which, a, b, logz, g_over_n, plain):
         raise ValueError(f"{name}: logz must be ({N},) and g_over_n one "
                          f"value, got {tuple(logz.shape)} and "
                          f"{tuple(g_over_n.shape)}")
-    if not _on_card(name, a, b, logz, g_over_n):
-        return plain(a, b, logz, g_over_n.reshape(()))
-    dev = a.device
-    a, b = _rows_for_kernel(a, b)
-    D4 = a.shape[1]
-    S = splits(which, N, D4, dev.index)
-    out = torch.empty((N, D4), dtype=torch.float32, device=dev)
-    part = torch.empty((S, N, D4), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        counters = _counters(dev, -(-N // TILE) * -(-D4 // FEATURE_CHUNK))
-        err = getattr(_lib(), f"ha2g_{name}")(
-            a.data_ptr(), b.data_ptr(), logz.data_ptr(), g_over_n.data_ptr(),
-            out.data_ptr(), part.data_ptr(), counters.data_ptr(), N, D4, S,
-            _stream_of(dev))
+    with kernel_call(bwd_flops(N, D)):
+        if not _on_card(name, a, b, logz, g_over_n):
+            return plain(a, b, logz, g_over_n.reshape(()))
+        dev = a.device
+        a, b = _rows_for_kernel(a, b)
+        D4 = a.shape[1]
+        S = splits(which, N, D4, dev.index)
+        out = torch.empty((N, D4), dtype=torch.float32, device=dev)
+        part = torch.empty((S, N, D4), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            counters = _counters(dev, -(-N // TILE) * -(-D4 // FEATURE_CHUNK))
+            err = getattr(_lib(), f"ha2g_{name}")(
+                a.data_ptr(), b.data_ptr(), logz.data_ptr(),
+                g_over_n.data_ptr(), out.data_ptr(), part.data_ptr(),
+                counters.data_ptr(), N, D4, S, _stream_of(dev))
     _raise_on(err, name)
     wrapper.launches += 1
     return out[:, :D] if D4 != D else out

@@ -39,6 +39,7 @@ import threading
 import torch
 
 from ha2g_torch import kernels
+from ha2g_torch.utils.roofline import kernel_call
 
 SOURCE = kernels.CSRC / "gru_recurrence.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -246,17 +247,34 @@ def gru_recurrence_plain(xp, h0, w_hh, b_hh) -> torch.Tensor:
     return torch.stack(outs)
 
 
+def forward_flops(T: int, B: int, H: int) -> int:
+    """B1 forward's FLOPs (``utils/roofline.py``): the TPU kernel's
+    CostEstimate, 2 T D B H G + 10 T D B H with D = 2 and G = 3H
+    (ha2g_tpu/ops/pallas_gru.py:101-104)."""
+    D, G = 2, 3 * H
+    return 2 * T * D * B * H * G + 10 * T * D * B * H
+
+
+def backward_loop_flops(T: int, B: int, H: int) -> int:
+    """The backward loop's FLOPs as FlopCounterMode counts its plain
+    version: one (2, B, 3H) x (2, 3H, H) product a step."""
+    return 2 * T * 2 * B * 3 * H * H
+
+
 def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
     """The recurrence of one bidirectional GRU layer (see module doc)."""
     T, B, H = _check(xp, h0, w_hh, b_hh)
-    if not _on_cuda("gru_recurrence", (xp, h0, w_hh, b_hh)):
-        return gru_recurrence_plain(xp, h0, w_hh, b_hh)
-    if H > MAX_HIDDEN:
-        raise ValueError(f"hidden size {H} exceeds the kernel's {MAX_HIDDEN}")
-    out = torch.empty((T, 2, B, H), dtype=xp.dtype, device=xp.device)
-    _launch("gru_recurrence", _lib().ha2g_gru_recurrence, xp.device,
-            xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            out.data_ptr(), T, B, H, _DTYPE_CODES[xp.dtype])
+    with kernel_call(forward_flops(T, B, H)):
+        if not _on_cuda("gru_recurrence", (xp, h0, w_hh, b_hh)):
+            return gru_recurrence_plain(xp, h0, w_hh, b_hh)
+        if H > MAX_HIDDEN:
+            raise ValueError(f"hidden size {H} exceeds the kernel's "
+                             f"{MAX_HIDDEN}")
+        out = torch.empty((T, 2, B, H), dtype=xp.dtype, device=xp.device)
+        _launch("gru_recurrence", _lib().ha2g_gru_recurrence, xp.device,
+                xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+                b_hh.data_ptr(), out.data_ptr(), T, B, H,
+                _DTYPE_CODES[xp.dtype])
     with _count_lock:
         gru_recurrence.launches += 1
     return out
@@ -314,22 +332,25 @@ def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
     if xp.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {xp.dtype}")
     tensors = (xp, hh, h_prev, w_hh, d_outs)
-    if not _on_cuda("gru_backward_loop", tensors):
-        return gru_backward_loop_plain(*tensors)
-    if H > MAX_HIDDEN:
-        raise ValueError(f"hidden size {H} exceeds the kernel's {MAX_HIDDEN}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("gru_backward_loop needs 16-byte aligned inputs (the "
-                         "kernel stages them in 16-byte chunks)")
-    if xp.numel() > 2 ** 31 - 1:
-        raise ValueError(f"xp {tuple(xp.shape)} too large for the kernel's "
-                         f"32-bit offsets")
-    d_gx = torch.empty((T, 2, B, G), dtype=torch.float32, device=xp.device)
-    d_gh = torch.empty_like(d_gx)
-    d_h0 = torch.empty((2, B, H), dtype=torch.float32, device=xp.device)
-    _launch("gru_backward_loop", _lib().ha2g_gru_backward, xp.device,
-            *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
-            T, B, H, _DTYPE_CODES[xp.dtype])
+    with kernel_call(backward_loop_flops(T, B, H)):
+        if not _on_cuda("gru_backward_loop", tensors):
+            return gru_backward_loop_plain(*tensors)
+        if H > MAX_HIDDEN:
+            raise ValueError(f"hidden size {H} exceeds the kernel's "
+                             f"{MAX_HIDDEN}")
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError("gru_backward_loop needs 16-byte aligned inputs "
+                             "(the kernel stages them in 16-byte chunks)")
+        if xp.numel() > 2 ** 31 - 1:
+            raise ValueError(f"xp {tuple(xp.shape)} too large for the "
+                             f"kernel's 32-bit offsets")
+        d_gx = torch.empty((T, 2, B, G), dtype=torch.float32,
+                           device=xp.device)
+        d_gh = torch.empty_like(d_gx)
+        d_h0 = torch.empty((2, B, H), dtype=torch.float32, device=xp.device)
+        _launch("gru_backward_loop", _lib().ha2g_gru_backward, xp.device,
+                *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
+                T, B, H, _DTYPE_CODES[xp.dtype])
     gru_backward_loop.launches += 1
     return d_gx, d_gh, d_h0
 

@@ -20,6 +20,8 @@ The hierarchy has a second loop that computes the same thing,
 ``generate_fused`` (``prepare_fused`` + ``run_fused``): the audio encoder
 does not depend on the carry, so it runs once over all windows at W-fold
 batch; the cascade, carry and cross-fade then run per window.
+``run_fused`` can take the batch in chunks (pinned staging, an upload and
+a download stream beside the compute stream) and pull float16.
 
 Every GRU recurrence goes through kernel B1 on CUDA.  The speaker-z noise
 comes from a ``torch.Generator`` (seed 0 when none is given), drawn in
@@ -60,16 +62,28 @@ SR = 16000
 WORD_SEQ_WIDTH = 32
 
 
-def _mel_any(audio: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Log-mel of float32 audio, int16 PCM or uint8 mu-law; the compact
-    formats are uploaded as they are and decoded on the device."""
-    audio = np.asarray(audio)
-    t = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
-    if audio.dtype == np.int16:
+def _mel_any(audio, device: torch.device) -> torch.Tensor:
+    """Log-mel of float32 audio, int16 PCM or uint8 mu-law, a host array or
+    a tensor (on ``device`` already, or moved there); the compact formats
+    are uploaded as they are and decoded on the device."""
+    t = audio if isinstance(audio, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(audio))
+    t = t.to(device)
+    if t.dtype == torch.int16:
         return batched_log_mel_i16(t)
-    if audio.dtype == np.uint8:
+    if t.dtype == torch.uint8:
         return batched_log_mel_mulaw(t)
     return batched_log_mel(t)
+
+
+def _pull_dtype(out_dtype) -> torch.dtype:
+    """run_fused's ``out_dtype``: None or float32, or float16 for the
+    half-size pull."""
+    if out_dtype is None or np.dtype(out_dtype) == np.float32:
+        return torch.float32
+    if np.dtype(out_dtype) == np.float16:
+        return torch.float16
+    raise ValueError(f"out_dtype must be float32 or float16, got {out_dtype}")
 
 
 def _window_layout(cfg: Config, clip_seconds: float):
@@ -139,8 +153,9 @@ class SlidingWindowSynthesizer:
         self.spec: SkeletonSpec = self.cfg.skeleton
         self.device = system.device
         self.dtype = resolve_dtype(self.cfg.compute_dtype)
-        # run_fused's model replicas by device
+        # run_fused's model replicas and copy streams by device
         self._replicas: dict = {}
+        self._streams: dict = {}
 
     @staticmethod
     def _generator(generator):
@@ -327,36 +342,132 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
                 "S_total": S_total, "pad_to": max(s0_all) + spec_len}
 
     @torch.inference_mode()
-    def run_fused(self, audio: np.ndarray, plan: dict,
+    def run_fused(self, audio: np.ndarray, plan: dict, chunk: int = 0,
+                  out_dtype=None,
                   devices: Optional[Sequence] = None) -> np.ndarray:
         """Device part of the fused loop: mel front-end, audio encoder over
         all windows at once, then the per-window cascade, carry and
-        cross-fade.  -> (B, total_frames, pose_dim) float32.
+        cross-fade, and the pull to the host.  ``plan`` from
+        ``prepare_fused``; -> (B, total_frames, pose_dim) float32.
 
-        ``devices`` (the JAX package's ``mesh=``): the clip batch splits
-        into len(devices) contiguous equal parts (B must divide), each run
-        on its device's replica of the model (made once, cached; the
-        synthesizer's own modules on its own device) from a thread of its
-        own.  Each part draws the speaker-z noise of the whole batch from a
-        copy of the plan's generator and keeps its rows
-        (``parallel.mesh.batch_part``), so the output equals the
-        single-device call, and the plan's generator ends where that call
-        leaves it.  This is the counterpart of JAX's API, not a way to
-        speed a call up: the path is bound by the host's dispatch, which
-        the threads share under one interpreter lock (two devices on one
-        H100 took 3.9-4.4x one call, PERF.md); its speed over separate
-        cards, or with each part in a process of its own, is not
-        measured."""
-        if not devices:
-            return self._fused_part(audio, plan["text_all"], plan["vids"],
-                                    plan, plan["generator"],
-                                    self._replica(self.device))
+        ``chunk`` > 0 (and < B) runs consecutive chunks of ``chunk`` clips,
+        the last one possibly smaller (JAX synthesis.py:371-420).  On the
+        card each chunk is staged in pinned host memory and goes up with
+        ``non_blocking`` copies on an upload stream; the compute stream
+        waits on the chunk's upload event, then runs its mel front-end,
+        encoder and window cascade; its poses go down into pinned host
+        memory on a download stream once the compute stream's event says
+        they are done.  Chunk i+1's upload is queued before chunk i's
+        compute, so transfers overlap compute; the call synchronises once,
+        at the end, and concatenates the chunks in order.  The card holds
+        one chunk's activations at a time.
+
+        ``out_dtype=np.float16`` casts the poses on the device and pulls
+        half the bytes; the result is float32 either way.
+
+        The speaker-z noise is drawn from the plan's generator chunk after
+        chunk, window by window, at the chunk's batch: chunking changes
+        the draw exactly as synthesizing the clips in smaller batches
+        would (the JAX package's caveat; with z pinned at mu the chunks
+        give the unchunked result), and the generator ends after the last
+        chunk's draws.
+
+        ``devices`` (the JAX package's ``mesh=``): each chunk (the whole
+        batch without ``chunk``) splits into len(devices) contiguous equal
+        parts (every chunk must divide), each run on its device's replica
+        of the model (made once, cached; the synthesizer's own modules on
+        its own device) from a thread of its own.  Each part draws the
+        speaker-z noise of the chunk's batch from a copy of the plan's
+        generator and keeps its rows (``parallel.mesh.batch_part``), so the
+        output equals the single-device call, and the plan's generator
+        ends where that call leaves it.  This is the counterpart of JAX's
+        API, not a way to speed a call up: the path is bound by the host's
+        dispatch, which the threads share under one interpreter lock (two
+        devices on one H100 took 3.9-4.4x one call, PERF.md); its speed
+        over separate cards, or with each part in a process of its own,
+        is not measured."""
+        B = np.shape(audio)[0]
+        pull = _pull_dtype(out_dtype)
+        step = B if chunk <= 0 or chunk >= B else chunk
+        chunks = [slice(i, min(i + step, B)) for i in range(0, B, step)]
+        if devices:
+            n = len(devices)
+            for rows in chunks:
+                if (rows.stop - rows.start) % n:
+                    raise ValueError(
+                        f"a batch of {rows.stop - rows.start} clips does "
+                        f"not split over {n} devices")
+            outs = [self._run_devices(audio[rows], plan, rows, devices, pull)
+                    for rows in chunks]
+        else:
+            outs = self._run_chunks(audio, plan, chunks, pull)
+        # a copy: the result holds none of the pinned buffers
+        return np.concatenate(outs, axis=0).astype(np.float32, copy=False)
+
+    def _run_chunks(self, audio, plan, chunks, pull) -> list:
+        """The chunks on the synthesizer's own device, pipelined on the
+        card (see ``run_fused``) -> their host arrays in ``pull``."""
+        modules = self._replica(self.device)
+        gen = plan["generator"]
+
+        def compute(x, rows):
+            return self._fused_device(x, plan["text_all"][:, rows],
+                                      plan["vids"][rows], plan, gen,
+                                      modules).to(pull)
+
+        if self.device.type != "cuda":
+            return [compute(audio[rows], rows).numpy() for rows in chunks]
+        dev = self.device
+        main = torch.cuda.current_stream(dev)
+        up, down = self._copy_streams(dev)
+        # every pinned buffer lives until the closing synchronise
+        hosts, uploads, pulled = [], [], []
+
+        def upload(rows):
+            src = torch.from_numpy(np.ascontiguousarray(audio[rows]))
+            host = torch.empty(src.shape, dtype=src.dtype,
+                               pin_memory=True).copy_(src)
+            with torch.cuda.stream(up):
+                x = host.to(dev, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(up)
+            hosts.append(host)
+            uploads.append((x, ready))
+
+        upload(chunks[0])
+        for k, rows in enumerate(chunks):
+            if k + 1 < len(chunks):
+                upload(chunks[k + 1])
+            x, ready = uploads[k]
+            main.wait_event(ready)
+            x.record_stream(main)   # allocated on the upload stream
+            out = compute(x, rows)
+            done = torch.cuda.Event()
+            done.record(main)
+            host = torch.empty(out.shape, dtype=pull, pin_memory=True)
+            with torch.cuda.stream(down):
+                down.wait_event(done)
+                host.copy_(out, non_blocking=True)
+            out.record_stream(down)
+            uploads[k] = None
+            pulled.append(host)
+        down.synchronize()
+        return [h.numpy() for h in pulled]
+
+    def _copy_streams(self, device: torch.device):
+        """(upload, download) side streams of ``device``, made once."""
+        if device not in self._streams:
+            self._streams[device] = (torch.cuda.Stream(device),
+                                     torch.cuda.Stream(device))
+        return self._streams[device]
+
+    def _run_devices(self, audio, plan, rows, devices, pull) -> np.ndarray:
+        """The clips ``rows`` of the plan split over ``devices`` (see
+        ``run_fused``) -> host array in ``pull``."""
         n, B = len(devices), np.shape(audio)[0]
-        if B % n:
-            raise ValueError(f"a batch of {B} clips does not split over "
-                             f"{n} devices")
         b = B // n
         replicas = [self._replica(torch.device(d)) for d in devices]
+        text, vids = plan["text_all"][:, rows], plan["vids"][rows]
         gen = plan["generator"]
         start = gen.get_state()
         outs, gens, errors = [None] * n, [None] * n, []
@@ -365,11 +476,11 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
             try:
                 g = torch.Generator(gen.device)
                 g.set_state(start)
-                rows = slice(i * b, (i + 1) * b)
+                r = slice(i * b, (i + 1) * b)
                 with torch.inference_mode(), batch_part(i, n):
-                    outs[i] = self._fused_part(
-                        audio[rows], plan["text_all"][:, rows],
-                        plan["vids"][rows], plan, g, replicas[i])
+                    outs[i] = self._fused_device(
+                        audio[r], text[:, r], vids[r], plan, g, replicas[i]
+                    ).to(pull).cpu().numpy()
                 gens[i] = g
             except BaseException as e:  # noqa: BLE001 (raised below)
                 errors.append(e)
@@ -397,7 +508,11 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
                     for m in (self.system.audio, self.system.gens))
         return self._replicas[device]
 
-    def _fused_part(self, audio, text_all, vids, plan, generator, modules):
+    def _fused_device(self, audio, text_all, vids, plan, generator,
+                      modules) -> torch.Tensor:
+        """The fused loop on audio (float32, int16 or uint8 mu-law; a host
+        array, or a tensor on the modules' device) -> the poses on that
+        device, float32 (B, total_frames, pose_dim)."""
         audio_enc, gens = modules
         device = next(audio_enc.parameters()).device
         cfg = self.cfg
@@ -428,7 +543,7 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
             # windows 0..W-2 keep their first T-n frames, the last all T
             pieces.append(torch.cat([head, out[:, n:T if w == W - 1 else T - n]],
                                     dim=1))
-        return torch.cat(pieces, dim=1).cpu().numpy()
+        return torch.cat(pieces, dim=1)
 
     @torch.inference_mode()
     def generate_fused(self, audio: np.ndarray, words_per_clip, lang: Vocab,
@@ -439,7 +554,7 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         cross-fade); ``devices`` as ``run_fused``'s."""
         plan = self.prepare_fused(words_per_clip, lang, vids,
                                   np.shape(audio)[1], generator)
-        return self.run_fused(audio, plan, devices)
+        return self.run_fused(audio, plan, devices=devices)
 
 
 class MultimodalSynthesizer(SlidingWindowSynthesizer):

@@ -1,7 +1,8 @@
 """The epoch training driver (the port of ha2g_tpu/train/loop.py;
 reference train.py:91-324 and evaluate_testset, train.py:326-508).
 
-* Each epoch evaluates first, then trains.  Evaluation draws speaker ids
+* Each epoch evaluates first (every ``eval_every``-th epoch with
+  ``fit(eval_every=N)``), then trains.  Evaluation draws speaker ids
   from ``np.random.default_rng(epoch)`` (speaker z) and gives eval batch i
   a CPU generator seeded ``seed + 10_000 + i``, so an evaluation is the
   same on every device.
@@ -18,7 +19,8 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
 * gesture_autoencoder evaluates its reconstruction loss only: no MAJE,
   accel, BC or FGD (JAX loop.py:186), so it selects by the loss.
 * The train steps' metrics are summed on the device and read once at the
-  end of an epoch, so no step waits on a host read.
+  end of an epoch (and every N global iterations with
+  ``fit(log_every=N)``), so no other step waits on a host read.
 * One ``torch.Generator`` on the device, seeded from ``random_seed``,
   drives the train steps' randomness.
 * Hooks (JAX loop.py:104-114, 277-333): ``tensorboard`` writes
@@ -151,6 +153,9 @@ class Trainer:
         self.eval_times: dict[str, float] = {}
         # the steps fit() has taken; the profiler traces iterations 3-5
         self.global_iter = 0
+        # fit's log_every: train_epoch also reads the metric sums every N
+        # global iterations (0: once an epoch)
+        self.log_every = 0
         self.profile_dir = profile_dir
         self._prof = None
         self.tb = None
@@ -253,9 +258,32 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> dict:
         """One pass over the train loader; -> the metrics' epoch means and
-        ``samples_per_s``."""
-        sums: dict[str, torch.Tensor] = {}
-        t0, n_steps, n_samples = time.perf_counter(), 0, 0
+        ``samples_per_s``.  The metrics are summed on the device and read
+        at the epoch's end, and with ``log_every`` N (``fit``'s) also every
+        N global iterations, each such read logged with the epoch's
+        running means and samples/s (JAX loop.py:341-347)."""
+        log_every = self.log_every
+        sums: dict[str, torch.Tensor] = {}     # on the device, since a read
+        totals: dict[str, float] = {}          # the reads' sums
+        world = 1 if self.mesh is None else self.mesh.world
+        t0, n_steps, n_samples, pending = time.perf_counter(), 0, 0, 0
+
+        def read():
+            nonlocal sums, pending
+            keys = sorted(sums)
+            if not keys:
+                return
+            stacked = torch.stack([sums[k] for k in keys])
+            if self.mesh is not None:
+                # each rank's metric is its rows' share of the global one
+                stacked = self.mesh.mean_over_ranks(stacked)
+            for k, v in zip(keys, stacked.cpu().tolist()):
+                totals[k] = totals.get(k, 0.0) + v
+                if self.tb is not None:
+                    self.tb.add_scalar(f"train/{k}", v / pending,
+                                       self.global_iter)
+            sums, pending = {}, 0
+
         for batch in self.train_loader:
             if self._prof is not None:
                 with torch.profiler.record_function(
@@ -267,23 +295,20 @@ class Trainer:
             self.global_iter += 1
             self._profile_step()
             n_steps += 1
-            n_samples += batch["target"].shape[0]
+            pending += 1
+            n_samples += batch["target"].shape[0] * world
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
-        keys = sorted(sums)
-        host = []
-        if keys:
-            stacked = torch.stack([sums[k] for k in keys])
-            if self.mesh is not None:
-                # each rank's metric is its rows' share of the global one
-                stacked = self.mesh.mean_over_ranks(stacked)
-                n_samples *= self.mesh.world
-            host = stacked.cpu().tolist()
-        means = {k: v / n_steps for k, v in zip(keys, host)}
+            if log_every and self.global_iter % log_every == 0:
+                read()
+                sps = n_samples / max(time.perf_counter() - t0, 1e-9)
+                logging.info(f"ep {epoch} it {self.global_iter}: " +
+                             ", ".join(f"{k}: {v / n_steps:.4f}"
+                                       for k, v in totals.items())
+                             + f", {sps:.1f} samples/s")
+        read()
+        means = {k: v / n_steps for k, v in totals.items()}
         sps = n_samples / max(time.perf_counter() - t0, 1e-9)
-        if self.tb is not None:
-            for k, v in means.items():
-                self.tb.add_scalar(f"train/{k}", v, self.global_iter)
         logging.info(f"[TRAIN] epoch {epoch}: " +
                      ", ".join(f"{k}: {v:.4f}" for k, v in means.items())
                      + f" ({sps:.1f} samples/s)")
@@ -380,11 +405,16 @@ class Trainer:
                                 self.speaker, extra=extra, step=self.step)
 
     def fit(self, epochs: Optional[int] = None, save_path=None,
+            eval_every: int = 1, log_every: int = 0,
             resume_from: Optional[str] = None,
             render_every: int = 0) -> list[dict]:
         """Train ``epochs`` epochs (the config's by default), or the rest
-        of them after ``resume_from``; -> the history rows.  With
-        ``render_every`` N, every N-th epoch renders a sample first."""
+        of them after ``resume_from``; -> the history rows.  Epochs
+        divisible by ``eval_every`` evaluate first (a history row, best
+        tracking, tensorboard ``val/`` scalars), and the run ends with an
+        evaluation; ``log_every`` N reads and logs the train metrics every
+        N global iterations (``train_epoch``).  With ``render_every`` N,
+        every N-th epoch renders a sample first."""
         epochs = epochs or self.cfg.epochs
         save_path = Path(save_path or self.cfg.model_save_path)
         start_epoch = 0
@@ -406,16 +436,19 @@ class Trainer:
                     f.write(json.dumps(row) + "\n")
 
         self.global_iter = 0
+        self.log_every = log_every
         if self.profile_dir is not None:
             self._start_profile()
         try:
             for epoch in range(start_epoch, epochs):
-                val = self.validate(epoch)  # evaluation first (train.py:190)
-                record(val, epoch)
-                if self.tb is not None:
-                    for k, v in val.items():
-                        self.tb.add_scalar(f"val/{k}", v, epoch)
-                self._track_best(val, epoch, save_path)
+                if epoch % eval_every == 0:
+                    # evaluation first (train.py:190)
+                    val = self.validate(epoch)
+                    record(val, epoch)
+                    if self.tb is not None:
+                        for k, v in val.items():
+                            self.tb.add_scalar(f"val/{k}", v, epoch)
+                    self._track_best(val, epoch, save_path)
                 if epoch % 10 == 0 and epoch > 0:
                     self.save(save_path / f"checkpoint_{epoch:03d}",
                               {"epoch": epoch - 1})

@@ -81,18 +81,19 @@ def vocabs():
     return out
 
 
-def port_config(dataset, pose_dim) -> Config:
+def port_config(dataset, pose_dim, hidden=HID) -> Config:
     return Config(model="hierarchy", dataset=dataset, pose_dim=pose_dim,
-                  n_poses=T, n_pre_poses=4, hidden_size=HID, n_layers=NL,
+                  n_poses=T, n_pre_poses=4, hidden_size=hidden, n_layers=NL,
                   z_type="speaker")
 
 
 @functools.cache
-def jax_hierarchy(dataset: str, pose_dim: int, seed: int = 0):
+def jax_hierarchy(dataset: str, pose_dim: int, seed: int = 0,
+                  hidden: int = HID):
     """-> (JAX config, JAX system, its HierarchyState): seeded weights,
     speaker z pinned at mu, random batch-norm statistics."""
-    port = HierarchySystem(port_config(dataset, pose_dim), N_WORDS, N_SPK,
-                           device="cpu",
+    port = HierarchySystem(port_config(dataset, pose_dim, hidden), N_WORDS,
+                           N_SPK, device="cpu",
                            generator=torch.Generator().manual_seed(seed))
     sd = port.state_dict()
     for level in range(port.spec.n_levels):

@@ -417,6 +417,53 @@ def test_run_fused_over_two_devices_matches_one_call(cuda):
     np.testing.assert_allclose(outs[1], outs[0], atol=2e-4)
 
 
+def test_chunked_run_fused_matches_one_call(cuda, monkeypatch):
+    """``run_fused(chunk=, out_dtype=)`` on the card (pinned staging, the
+    upload / download streams): chunks of 2 and 3 (a ragged last chunk)
+    within 1e-4 of the unchunked call (fp32 with TF32 off, speaker z
+    pinned at mu; the convolutions may take another algorithm at another
+    batch), B1 launched 3 levels x 2 layers a window a chunk, and the
+    float16 pull each float32 pull rounded (float32 out)."""
+    import numpy as np
+
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.synthesis import make_synthesizer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    system = _narrow_hierarchy(cuda, z_type="speaker")
+    state = system.state_dict()
+    for level in range(system.spec.n_levels):
+        state[f"gens.{level}.speaker_logvar.weight"].zero_()
+        state[f"gens.{level}.speaker_logvar.bias"].fill_(-100.0)
+    synth = make_synthesizer(system, state)
+    lang = Vocab("words")
+    for i in range(20 - lang.n_words):
+        lang.index_word(f"w{i}")
+    rng = np.random.default_rng(3)
+    B = 5
+    audio = (rng.normal(size=(B, 5 * 16000)) * 0.1).astype(np.float32)
+    mu = (np.sign(audio) * np.log1p(255 * np.abs(audio)) / np.log1p(255))
+    audio_u8 = ((mu + 1) / 2 * 255 + 0.5).astype(np.uint8)
+    words = [[(f"w{j}", 0.3 * j, 0.3 * j + 0.2) for j in range(8)]
+             for _ in range(B)]
+    plan = synth.prepare_fused(words, lang, np.arange(B) % 5,
+                               audio.shape[1])
+    for x in (audio, audio_u8):
+        one = synth.run_fused(x, plan)
+        for chunk in (2, 3):
+            before = gru_recurrence.launches
+            got = synth.run_fused(x, plan, chunk=chunk)
+            n_chunks = -(-B // chunk)
+            assert gru_recurrence.launches - before == \
+                plan["num_sub"] * 3 * 2 * n_chunks
+            assert got.dtype == np.float32 and got.shape == one.shape
+            np.testing.assert_allclose(got, one, atol=1e-4, rtol=0)
+            f16 = synth.run_fused(x, plan, chunk=chunk, out_dtype=np.float16)
+            assert f16.dtype == np.float32
+            np.testing.assert_array_equal(f16, got.astype(np.float16))
+
+
 def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):
     """``torchrun -m ha2g_torch.cli train`` on every card of the machine (up
     to 4; one NCCL rank a card, ``--fsdp_devices 2``: FSDP's gathers and
