@@ -14,6 +14,7 @@ from ha2g_torch.models.resnet_se import ResNetSE
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.ops.gru import GRU
 from ha2g_torch.parallel.mesh import draw_rows
+from ha2g_torch.utils.spans import span
 
 Z_SIZE = 16
 FEAT_SIZE = 32
@@ -57,6 +58,7 @@ class HierarchicalPoseGenerator(nn.Module):
             raise ValueError(f"unknown z_type {z_type!r}")
         if input_context not in ("both", "audio", "text", "none"):
             raise ValueError(f"unknown input_context {input_context!r}")
+        self.pose_dim = pose_dim
         self.hidden_size = hidden_size
         self.z_type = z_type
         self.input_context = input_context
@@ -103,22 +105,23 @@ class HierarchicalPoseGenerator(nn.Module):
         """pre_seq (B, T, pose_dim+1), in_text (B, T) tokens, audio_feat_seq
         (B, T, 32), vid_indices (B,) -> (out (B, T, pose_dim), z, mu, logvar).
         ``generator`` supplies the speaker-z noise and the dropout masks."""
-        B, T, _ = pre_seq.shape
-        text_feat = self.text_encoder(in_text, dtype, generator)
-        z, mu, logvar = self.speaker_z(vid_indices, B, dtype, generator)
-        parts = [pre_seq]
-        if self.input_context in ("both", "audio"):
-            parts.append(audio_feat_seq)
-        if self.input_context in ("both", "text"):
-            parts.append(text_feat)
-        if z is not None:
-            parts.append(z[:, None, :].expand(B, T, z.shape[-1]))
-        in_data = torch.cat([p.to(dtype) for p in parts], dim=2)
-        out, _ = self.gru(in_data, dtype, generator)
-        H = self.hidden_size
-        out = out[..., :H] + out[..., H:]
-        out = leaky_relu(self.out[0](out, dtype), self.slope)
-        return self.out[2](out, dtype), z, mu, logvar
+        with span("ha2g.model.level", self.pose_dim):
+            B, T, _ = pre_seq.shape
+            text_feat = self.text_encoder(in_text, dtype, generator)
+            z, mu, logvar = self.speaker_z(vid_indices, B, dtype, generator)
+            parts = [pre_seq]
+            if self.input_context in ("both", "audio"):
+                parts.append(audio_feat_seq)
+            if self.input_context in ("both", "text"):
+                parts.append(text_feat)
+            if z is not None:
+                parts.append(z[:, None, :].expand(B, T, z.shape[-1]))
+            in_data = torch.cat([p.to(dtype) for p in parts], dim=2)
+            out, _ = self.gru(in_data, dtype, generator)
+            H = self.hidden_size
+            out = out[..., :H] + out[..., H:]
+            out = leaky_relu(self.out[0](out, dtype), self.slope)
+            return self.out[2](out, dtype), z, mu, logvar
 
 
 class ConvDiscriminator(nn.Module):
@@ -143,13 +146,14 @@ class ConvDiscriminator(nn.Module):
 
     def forward(self, poses, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None):
-        pc = self.pre_conv
-        x = poses.transpose(1, 2)                        # (B, C, T)
-        x = leaky_relu(pc[1](pc[0](x, dtype), dtype), self.slope)
-        x = leaky_relu(pc[4](pc[3](x, dtype), dtype), self.slope)
-        x = pc[6](x, dtype).transpose(1, 2)              # (B, T-6, 8)
-        out, _ = self.gru(x, dtype, generator)
-        H = self.hidden_size
-        out = out[..., :H] + out[..., H:]
-        out = self.out(out, dtype)[..., 0]               # (B, T-6)
-        return torch.sigmoid(self.out2(out, dtype))
+        with span("ha2g.model.discriminator"):
+            pc = self.pre_conv
+            x = poses.transpose(1, 2)                    # (B, C, T)
+            x = leaky_relu(pc[1](pc[0](x, dtype), dtype), self.slope)
+            x = leaky_relu(pc[4](pc[3](x, dtype), dtype), self.slope)
+            x = pc[6](x, dtype).transpose(1, 2)          # (B, T-6, 8)
+            out, _ = self.gru(x, dtype, generator)
+            H = self.hidden_size
+            out = out[..., :H] + out[..., H:]
+            out = self.out(out, dtype)[..., 0]           # (B, T-6)
+            return torch.sigmoid(self.out2(out, dtype))

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ha2g_torch.models.common import BatchNorm, Conv2d, Linear
+from ha2g_torch.utils.spans import span
 
 
 def _he_conv(*args, **kw) -> Conv2d:
@@ -67,12 +68,13 @@ class SEBasicBlock(nn.Module):
                 BatchNorm(planes)])
 
     def forward(self, x, dtype):
-        y = self.bn1(F.relu(self.conv1(x, dtype)), dtype)
-        y = self.se(self.bn2(self.conv2(y, dtype), dtype), dtype)
-        res = x
-        if self.downsample is not None:
-            res = self.downsample[1](self.downsample[0](x, dtype), dtype)
-        return F.relu(y + res)
+        with span("ha2g.model.se_block"):
+            y = self.bn1(F.relu(self.conv1(x, dtype)), dtype)
+            y = self.se(self.bn2(self.conv2(y, dtype), dtype), dtype)
+            res = x
+            if self.downsample is not None:
+                res = self.downsample[1](self.downsample[0](x, dtype), dtype)
+            return F.relu(y + res)
 
 
 def _tap_rows(n_mels: int, n_stages_down: int, shuffle: int, k: int) -> int:
@@ -127,22 +129,23 @@ class ResNetSE(nn.Module):
         return fc(feat, dtype)                           # (B, W, 32)
 
     def forward(self, spec, vid_indices, dtype: torch.dtype = torch.float32):
-        x = spec[:, None]
-        x = self.bn1(F.relu(self.conv1(x, dtype)), dtype)
-        feats = []
-        for s in range(4):
-            for block in getattr(self, f"layer{s + 1}"):
-                x = block(x, dtype)
-            feats.append(x)
-        feat_low = self._tap("low", feats[1], 1, dtype)
-        feat_mid = self._tap("mid", feats[2], 2, dtype)
-        feat_high = self._tap("high", feats[3], 4, dtype)
+        with span("ha2g.model.audio_encoder"):
+            x = spec[:, None]
+            x = self.bn1(F.relu(self.conv1(x, dtype)), dtype)
+            feats = []
+            for s in range(4):
+                for block in getattr(self, f"layer{s + 1}"):
+                    x = block(x, dtype)
+                feats.append(x)
+            feat_low = self._tap("low", feats[1], 1, dtype)
+            feat_mid = self._tap("mid", feats[2], 2, dtype)
+            feat_high = self._tap("high", feats[3], 4, dtype)
 
-        z = self.speaker_embedding[1](self.speaker_embedding[0](vid_indices),
-                                      dtype)
-        h = F.elu(self.fc1(F.elu(z), dtype))
-        w = self.fc2(h, dtype).reshape(-1, 3, self.pose_level)
-        weight = torch.softmax(w, dim=1)                 # over the 3 scales
-        stacked = torch.stack([feat_low, feat_mid, feat_high], dim=1)
-        blend = torch.einsum("bsl,bstf->lbtf", weight, stacked)
-        return weight, feat_low, feat_mid, feat_high, blend
+            z = self.speaker_embedding[1](
+                self.speaker_embedding[0](vid_indices), dtype)
+            h = F.elu(self.fc1(F.elu(z), dtype))
+            w = self.fc2(h, dtype).reshape(-1, 3, self.pose_level)
+            weight = torch.softmax(w, dim=1)             # over the 3 scales
+            stacked = torch.stack([feat_low, feat_mid, feat_high], dim=1)
+            blend = torch.einsum("bsl,bstf->lbtf", weight, stacked)
+            return weight, feat_low, feat_mid, feat_high, blend

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ha2g_torch.models.common import Conv1d, Linear, dropout
+from ha2g_torch.utils.spans import span
 
 
 class WeightNormConv1d(nn.Module):
@@ -99,8 +100,9 @@ class TextEncoderTCN(nn.Module):
 
     def forward(self, tokens, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None):
-        table = self.embedding.weight
-        emb = F.embedding(tokens, table.detach() if self.freeze else table)
-        emb = dropout(emb, self.emb_dropout, self.training, generator)
-        y = self.tcn(emb.transpose(1, 2), dtype, generator)
-        return self.decoder(y.transpose(1, 2), dtype)
+        with span("ha2g.model.text_encoder"):
+            table = self.embedding.weight
+            emb = F.embedding(tokens, table.detach() if self.freeze else table)
+            emb = dropout(emb, self.emb_dropout, self.training, generator)
+            y = self.tcn(emb.transpose(1, 2), dtype, generator)
+            return self.decoder(y.transpose(1, 2), dtype)

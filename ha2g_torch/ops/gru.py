@@ -33,6 +33,7 @@ import torch.nn as nn
 
 from ha2g_torch.models.common import dropout
 from ha2g_torch.ops.gru_kernel import gru_recurrence_fn
+from ha2g_torch.utils.spans import span
 
 _SUFFIXES = ("", "_reverse")
 
@@ -106,26 +107,27 @@ class GRU(_GRUParams):
         h0 = torch.zeros((D, B, H), dtype=dtype, device=x.device)
         finals = []
         for layer in range(self.n_layers):
-            w_ih, w_hh, b_ih, b_hh = self.layer_params(layer, dtype)
-            if self.bidirectional:
-                xp = torch.einsum("btd,ndg->tnbg", inp, w_ih) \
-                    + b_ih[None, :, None]
-                xp = torch.cat([xp[:, :1], xp[:, 1:].flip(0)], dim=1)
-                outs = gru_recurrence_fn(xp.contiguous(), h0, w_hh, b_hh)
-                layer_out = torch.cat([outs[:, 0], outs[:, 1].flip(0)],
-                                      dim=-1)                  # (T, B, 2H)
-                finals.append(outs[-1])
-            else:
-                xp = (inp @ w_ih + b_ih).transpose(0, 1)       # (T, B, 3H)
-                h, steps = h0[0], []
-                for t in range(T):
-                    h = gru_step(xp[t], h, w_hh, b_hh)
-                    steps.append(h)
-                layer_out = torch.stack(steps)                 # (T, B, H)
-                finals.append(h[None])
-            inp = layer_out.transpose(0, 1)
-            if layer < self.n_layers - 1:
-                inp = dropout(inp, self.dropout, self.training, generator)
+            with span("ha2g.model.gru_layer", layer):
+                w_ih, w_hh, b_ih, b_hh = self.layer_params(layer, dtype)
+                if self.bidirectional:
+                    xp = torch.einsum("btd,ndg->tnbg", inp, w_ih) \
+                        + b_ih[None, :, None]
+                    xp = torch.cat([xp[:, :1], xp[:, 1:].flip(0)], dim=1)
+                    outs = gru_recurrence_fn(xp.contiguous(), h0, w_hh, b_hh)
+                    layer_out = torch.cat([outs[:, 0], outs[:, 1].flip(0)],
+                                          dim=-1)              # (T, B, 2H)
+                    finals.append(outs[-1])
+                else:
+                    xp = (inp @ w_ih + b_ih).transpose(0, 1)   # (T, B, 3H)
+                    h, steps = h0[0], []
+                    for t in range(T):
+                        h = gru_step(xp[t], h, w_hh, b_hh)
+                        steps.append(h)
+                    layer_out = torch.stack(steps)             # (T, B, H)
+                    finals.append(h[None])
+                inp = layer_out.transpose(0, 1)
+                if layer < self.n_layers - 1:
+                    inp = dropout(inp, self.dropout, self.training, generator)
         return inp, torch.cat(finals, dim=0)
 
 

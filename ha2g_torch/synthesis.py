@@ -56,6 +56,7 @@ from ha2g_torch.ops.precision import resolve_dtype
 from ha2g_torch.parallel.mesh import batch_part
 from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train.cascade import run_cascade
+from ha2g_torch.utils.spans import span
 
 SR = 16000
 # the word-sequence width of a window (the JAX package's fixed 32)
@@ -323,23 +324,25 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         """Host-side plan of the fused loop: window layout, per-window word
         indices and spectrogram offsets.  Depends on the transcripts and the
         clip length only, not on the samples."""
-        cfg = self.cfg
-        clip_seconds = n_samples / SR
-        unit_time, stride_time, num_sub = _window_layout(cfg, clip_seconds)
-        spec_len = spectrogram_length_for(cfg.n_poses,
-                                          cfg.motion_resampling_framerate)
-        # frame count of the centre-padded mel front-end
-        S_total = n_samples // HOP + 1
-        s0_all = [math.floor(i * stride_time / clip_seconds * S_total)
-                  for i in range(num_sub)]
-        return {"text_all": self._text_windows(words_per_clip, lang, num_sub,
-                                               unit_time, stride_time),
-                "s0_all": s0_all,
-                "vids": torch.as_tensor(np.asarray(vids),
-                                        device=self.device).long(),
-                "generator": self._generator(generator),
-                "num_sub": num_sub, "spec_len": spec_len,
-                "S_total": S_total, "pad_to": max(s0_all) + spec_len}
+        with span("ha2g.synth.plan"):
+            cfg = self.cfg
+            clip_seconds = n_samples / SR
+            unit_time, stride_time, num_sub = _window_layout(cfg, clip_seconds)
+            spec_len = spectrogram_length_for(cfg.n_poses,
+                                              cfg.motion_resampling_framerate)
+            # frame count of the centre-padded mel front-end
+            S_total = n_samples // HOP + 1
+            s0_all = [math.floor(i * stride_time / clip_seconds * S_total)
+                      for i in range(num_sub)]
+            return {"text_all": self._text_windows(words_per_clip, lang,
+                                                   num_sub, unit_time,
+                                                   stride_time),
+                    "s0_all": s0_all,
+                    "vids": torch.as_tensor(np.asarray(vids),
+                                            device=self.device).long(),
+                    "generator": self._generator(generator),
+                    "num_sub": num_sub, "spec_len": spec_len,
+                    "S_total": S_total, "pad_to": max(s0_all) + spec_len}
 
     @torch.inference_mode()
     def run_fused(self, audio: np.ndarray, plan: dict, chunk: int = 0,
@@ -401,8 +404,9 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
                     for rows in chunks]
         else:
             outs = self._run_chunks(audio, plan, chunks, pull)
-        # a copy: the result holds none of the pinned buffers
-        return np.concatenate(outs, axis=0).astype(np.float32, copy=False)
+        with span("ha2g.synth.pull"):
+            # a copy: the result holds none of the pinned buffers
+            return np.concatenate(outs, axis=0).astype(np.float32, copy=False)
 
     def _run_chunks(self, audio, plan, chunks, pull) -> list:
         """The chunks on the synthesizer's own device, pipelined on the
@@ -424,13 +428,14 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         hosts, uploads, pulled = [], [], []
 
         def upload(rows):
-            src = torch.from_numpy(np.ascontiguousarray(audio[rows]))
-            host = torch.empty(src.shape, dtype=src.dtype,
-                               pin_memory=True).copy_(src)
-            with torch.cuda.stream(up):
-                x = host.to(dev, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(up)
+            with span("ha2g.synth.upload"):
+                src = torch.from_numpy(np.ascontiguousarray(audio[rows]))
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=True).copy_(src)
+                with torch.cuda.stream(up):
+                    x = host.to(dev, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(up)
             hosts.append(host)
             uploads.append((x, ready))
 
@@ -442,17 +447,19 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
             main.wait_event(ready)
             x.record_stream(main)   # allocated on the upload stream
             out = compute(x, rows)
-            done = torch.cuda.Event()
-            done.record(main)
-            host = torch.empty(out.shape, dtype=pull, pin_memory=True)
-            with torch.cuda.stream(down):
-                down.wait_event(done)
-                host.copy_(out, non_blocking=True)
-            out.record_stream(down)
+            with span("ha2g.synth.pull"):
+                done = torch.cuda.Event()
+                done.record(main)
+                host = torch.empty(out.shape, dtype=pull, pin_memory=True)
+                with torch.cuda.stream(down):
+                    down.wait_event(done)
+                    host.copy_(out, non_blocking=True)
+                out.record_stream(down)
             uploads[k] = None
             pulled.append(host)
-        down.synchronize()
-        return [h.numpy() for h in pulled]
+        with span("ha2g.synth.pull"):
+            down.synchronize()
+            return [h.numpy() for h in pulled]
 
     def _copy_streams(self, device: torch.device):
         """(upload, download) side streams of ``device``, made once."""
@@ -518,17 +525,19 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         cfg = self.cfg
         n, T = cfg.n_pre_poses, cfg.n_poses
         W, spec_len = plan["num_sub"], plan["spec_len"]
-        full_spec = _mel_any(audio, device)
-        if full_spec.shape[2] != plan["S_total"]:
-            raise ValueError(f"audio gives {full_spec.shape[2]} mel frames, "
-                             f"the plan expects {plan['S_total']}")
-        if plan["pad_to"] > plan["S_total"]:
-            full_spec = F.pad(full_spec, (0, plan["pad_to"] - plan["S_total"]),
-                              mode="replicate")
+        with span("ha2g.synth.mel"):
+            full_spec = _mel_any(audio, device)
+            if full_spec.shape[2] != plan["S_total"]:
+                raise ValueError(f"audio gives {full_spec.shape[2]} mel "
+                                 f"frames, the plan expects {plan['S_total']}")
+            if plan["pad_to"] > plan["S_total"]:
+                full_spec = F.pad(full_spec,
+                                  (0, plan["pad_to"] - plan["S_total"]),
+                                  mode="replicate")
+            spec_all = torch.stack([full_spec[:, :, s0:s0 + spec_len]
+                                    for s0 in plan["s0_all"]])  # (W, B, 128, S)
         B = full_spec.shape[0]
         vids, text_all = vids.to(device), text_all.to(device)
-        spec_all = torch.stack([full_spec[:, :, s0:s0 + spec_len]
-                                for s0 in plan["s0_all"]])   # (W, B, 128, S)
         blend = audio_enc(spec_all.flatten(0, 1), vids.repeat(W),
                           self.dtype)[-1]                    # (L, W*B, T, 32)
         blend_all = blend.unflatten(1, (W, B)).transpose(0, 1)  # (W, L, B, ..)
@@ -536,13 +545,14 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         pieces = []
         tail = torch.zeros((B, n, self.spec.pose_dim), device=device)
         for w in range(W):
-            out = self._cascade_step(text_all[w], blend_all[w], tail, vids,
-                                     generator, gens)
-            head = out[:, :n] if w == 0 else _cross_fade(tail, out[:, :n])
-            tail = out[:, -n:]
-            # windows 0..W-2 keep their first T-n frames, the last all T
-            pieces.append(torch.cat([head, out[:, n:T if w == W - 1 else T - n]],
-                                    dim=1))
+            with span("ha2g.synth.window", w):
+                out = self._cascade_step(text_all[w], blend_all[w], tail,
+                                         vids, generator, gens)
+                head = out[:, :n] if w == 0 else _cross_fade(tail, out[:, :n])
+                tail = out[:, -n:]
+                # windows 0..W-2 keep their first T-n frames, the last all T
+                pieces.append(torch.cat(
+                    [head, out[:, n:T if w == W - 1 else T - n]], dim=1))
         return torch.cat(pieces, dim=1)
 
     @torch.inference_mode()

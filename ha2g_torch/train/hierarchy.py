@@ -58,6 +58,7 @@ from ha2g_torch.parallel.mesh import (distributed_step, local_rows,
 from ha2g_torch.skeleton import SkeletonSpec
 from ha2g_torch.train import losses
 from ha2g_torch.train.cascade import run_cascade
+from ha2g_torch.utils.spans import span
 
 
 class HierarchySystem(nn.Module):
@@ -147,73 +148,80 @@ class HierarchySystem(nn.Module):
         metrics: dict[str, torch.Tensor] = {}
 
         # ONE audio forward for the step (its BN statistics update once)
-        _, lo, _, hi, blend = self.audio(spec_in, vids, dtype)
+        with span("ha2g.train.audio"):
+            _, lo, _, hi, blend = self.audio(spec_in, vids, dtype)
 
         # ---------------- D phase ----------------
         if gan_on and cfg.loss_gan_weight > 0.0:
-            with torch.no_grad():
-                fake = self._cascade(blend, text, target, vids,
-                                     generator)[0][-1]
-            d_real = self.dis(target, dtype, generator).float()
-            d_fake = self.dis(fake, dtype, generator).float()
-            d_loss = losses.nsgan_d_loss(d_real, d_fake)
-            optimizer_step(self.d_opt, d_loss, self.mesh, regather=True)
-            metrics["dis"] = d_loss.detach()
+            with span("ha2g.train.d_phase"):
+                with torch.no_grad():
+                    fake = self._cascade(blend, text, target, vids,
+                                         generator)[0][-1]
+                d_real = self.dis(target, dtype, generator).float()
+                d_fake = self.dis(fake, dtype, generator).float()
+                d_loss = losses.nsgan_d_loss(d_real, d_fake)
+                optimizer_step(self.d_opt, d_loss, self.mesh, regather=True)
+                metrics["dis"] = d_loss.detach()
 
         # ---------------- G phase (against the updated D) ----------------
-        outs, targets, z, mu, logvar = self._cascade(blend, text, target,
-                                                     vids, generator)
-        out = outs[-1]
-        huber = sum(losses.scaled_huber(o, t) for o, t in zip(outs, targets))
-        loss = cfg.loss_regression_weight * huber
-        metrics["loss"] = loss.detach()
+        with span("ha2g.train.g_forward"):
+            outs, targets, z, mu, logvar = self._cascade(blend, text, target,
+                                                         vids, generator)
+            out = outs[-1]
+            huber = sum(losses.scaled_huber(o, t)
+                        for o, t in zip(outs, targets))
+            loss = cfg.loss_regression_weight * huber
+            metrics["loss"] = loss.detach()
 
-        # D on the generated poses: its BN statistics update in any case;
-        # its parameters take no gradient from the G loss
-        self.dis.requires_grad_(False)
-        try:
-            with torch.set_grad_enabled(gan_on):
-                gen_error = losses.nsgan_g_loss(
-                    self.dis(out, dtype, generator).float())
-        finally:
-            self.dis.requires_grad_(True)
+            # D on the generated poses: its BN statistics update in any
+            # case; its parameters take no gradient from the G loss
+            self.dis.requires_grad_(False)
+            try:
+                with torch.set_grad_enabled(gan_on):
+                    gen_error = losses.nsgan_g_loss(
+                        self.dis(out, dtype, generator).float())
+            finally:
+                self.dis.requires_grad_(True)
 
         # contrastive: standalone text features vs the high (+) and low (-)
         # audio taps, one row per frame
-        text_feat = self.text(text, dtype, generator).float()
-        tf = text_feat.reshape(-1, text_feat.shape[-1])
-        if cfg.loss_contrastive_pos_weight > 0.0:
-            c_pos = cfg.loss_contrastive_pos_weight * losses.softmax_contrastive(
-                tf, hi.float().reshape(-1, hi.shape[-1]))
-            loss = loss + c_pos
-            metrics["c_pos"] = c_pos.detach()
-        if cfg.loss_contrastive_neg_weight > 0.0:
-            c_neg = -cfg.loss_contrastive_neg_weight * \
-                losses.softmax_contrastive(tf, lo.float().reshape(
-                    -1, lo.shape[-1]))
-            loss = loss + c_neg
-            metrics["c_neg"] = c_neg.detach()
+        with span("ha2g.train.contrastive"):
+            text_feat = self.text(text, dtype, generator).float()
+            tf = text_feat.reshape(-1, text_feat.shape[-1])
+            if cfg.loss_contrastive_pos_weight > 0.0:
+                c_pos = cfg.loss_contrastive_pos_weight * \
+                    losses.softmax_contrastive(
+                        tf, hi.float().reshape(-1, hi.shape[-1]))
+                loss = loss + c_pos
+                metrics["c_pos"] = c_pos.detach()
+            if cfg.loss_contrastive_neg_weight > 0.0:
+                c_neg = -cfg.loss_contrastive_neg_weight * \
+                    losses.softmax_contrastive(tf, lo.float().reshape(
+                        -1, lo.shape[-1]))
+                loss = loss + c_neg
+                metrics["c_neg"] = c_neg.detach()
 
         # diversity regulariser (its cascade is detached whole) and KLD
         if cfg.z_type in ("speaker", "random") and cfg.loss_reg_weight > 0.0:
-            if rand_vids is None:
-                rand_vids = vids
+            with span("ha2g.train.diversity"):
+                if rand_vids is None:
+                    rand_vids = vids
+                    if cfg.z_type == "speaker":
+                        rand_vids = permute_rows(vids, generator)
+                else:
+                    rand_vids = local_rows(torch.as_tensor(rand_vids))
+                with torch.no_grad():
+                    outs_r, _, z_rand, _, _ = self._cascade(
+                        blend, text, target, torch.as_tensor(
+                            rand_vids, device=self.device), generator)
+                div = cfg.loss_reg_weight * losses.diversity_regularizer(
+                    out, outs_r[-1], z, z_rand)
+                loss = loss + div
+                metrics["DIV_REG"] = div.detach()
                 if cfg.z_type == "speaker":
-                    rand_vids = permute_rows(vids, generator)
-            else:
-                rand_vids = local_rows(torch.as_tensor(rand_vids))
-            with torch.no_grad():
-                outs_r, _, z_rand, _, _ = self._cascade(
-                    blend, text, target, torch.as_tensor(
-                        rand_vids, device=self.device), generator)
-            div = cfg.loss_reg_weight * losses.diversity_regularizer(
-                out, outs_r[-1], z, z_rand)
-            loss = loss + div
-            metrics["DIV_REG"] = div.detach()
-            if cfg.z_type == "speaker":
-                kld = cfg.loss_kld_weight * losses.speaker_kld(mu, logvar)
-                loss = loss + kld
-                metrics["KLD"] = kld.detach()
+                    kld = cfg.loss_kld_weight * losses.speaker_kld(mu, logvar)
+                    loss = loss + kld
+                    metrics["KLD"] = kld.detach()
 
         if gan_on:
             gen = cfg.loss_gan_weight * gen_error
@@ -226,7 +234,8 @@ class HierarchySystem(nn.Module):
             loss = loss + phy
             metrics["phy"] = phy.detach()
 
-        optimizer_step(self.g_opt, loss, self.mesh)
+        with span("ha2g.train.g_update"):
+            optimizer_step(self.g_opt, loss, self.mesh)
         return metrics
 
     # ------------------------------------------------------------------

@@ -30,7 +30,8 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   a warning); ``profile_dir`` takes a ``torch.profiler`` trace of the
   global iterations 3 to 5 of ``fit`` (CUDA activity too on the card),
   written there as the Chrome trace ``trace.json`` (``trace.rank<r>.json``
-  under several processes), each step a ``train_step#<i>`` range;
+  under several processes), each step a ``train_step#<i>`` range holding
+  the program's spans (``utils/spans.py``; recorded under any profiler);
   ``fit(render_every=N)`` renders a validation sample against its ground
   truth every N epochs (``render.py``), not for gesture_autoencoder and
   only with ``save_result_video``; a failed render is logged.
@@ -74,6 +75,7 @@ from ha2g_torch.models.seq2seq import MaskedBiGRUEncoder
 from ha2g_torch.models.tcn import TextEncoderTCN
 from ha2g_torch.parallel.mesh import mesh_for
 from ha2g_torch.utils.average_meter import AverageMeter
+from ha2g_torch.utils.spans import span
 
 # the families whose train step takes gan_on (epoch > loss_warmup)
 GAN_GATED = ("hierarchy", "multimodal_context")
@@ -273,23 +275,25 @@ class Trainer:
             keys = sorted(sums)
             if not keys:
                 return
-            stacked = torch.stack([sums[k] for k in keys])
-            if self.mesh is not None:
-                # each rank's metric is its rows' share of the global one
-                stacked = self.mesh.mean_over_ranks(stacked)
-            for k, v in zip(keys, stacked.cpu().tolist()):
-                totals[k] = totals.get(k, 0.0) + v
-                if self.tb is not None:
-                    self.tb.add_scalar(f"train/{k}", v / pending,
-                                       self.global_iter)
+            with span("ha2g.trainer.read"):
+                stacked = torch.stack([sums[k] for k in keys])
+                if self.mesh is not None:
+                    # each rank's metric is its rows' share of the global one
+                    stacked = self.mesh.mean_over_ranks(stacked)
+                for k, v in zip(keys, stacked.cpu().tolist()):
+                    totals[k] = totals.get(k, 0.0) + v
+                    if self.tb is not None:
+                        self.tb.add_scalar(f"train/{k}", v / pending,
+                                           self.global_iter)
             sums, pending = {}, 0
 
-        for batch in self.train_loader:
-            if self._prof is not None:
-                with torch.profiler.record_function(
-                        f"train_step#{self.global_iter}"):
-                    metrics = self._train_step(batch, epoch)
-            else:
+        batches = iter(self.train_loader)
+        while True:
+            with span("ha2g.trainer.loader_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span(f"train_step#{self.global_iter}"):
                 metrics = self._train_step(batch, epoch)
             self.step += 1
             self.global_iter += 1
