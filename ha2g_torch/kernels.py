@@ -8,10 +8,17 @@ runs at import time.  One lock serialises building and loading, so threads
 that first use a kernel together build it once; a build writes its
 library to a temporary file named by process and thread before moving it
 into place.
+
+The wrappers count their kernels' executions in a ``launches`` attribute
+through ``count_launch``: an eager launch counts one; a launch recorded
+while the thread captures a CUDA graph (inside ``captured_launches``)
+counts nothing, and goes into the capture's tally, which ``add_launches``
+adds again at each replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 _lock = threading.RLock()
+_count_lock = threading.Lock()
+_capture = threading.local()
 
 
 def _nvcc() -> str:
@@ -90,3 +99,35 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(source)))
             _loaded[source] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """One kernel launch by ``wrapper``: one more in ``wrapper.launches``,
+    or, while this thread captures a graph, one more in the capture's
+    tally (under a lock: serving launches from several threads)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
+    with _count_lock:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture on this thread: yields the tally
+    {wrapper: launches recorded}, which no ``launches`` counts yet."""
+    tally = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def add_launches(tally: dict) -> None:
+    """A replay of a captured graph: each wrapper's ``launches`` grows by
+    the launches captured in it."""
+    with _count_lock:
+        for wrapper, n in tally.items():
+            wrapper.launches += n

@@ -19,9 +19,9 @@ kernel a per-stream buffer of arrival counters that the kernels leave
 zeroed (see the source's header).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
-its ``launches`` attribute; for CPU tensors it runs its plain PyTorch
-version (``*_plain``), which materialises the (N, N) logits, and counts
-nothing.  A CUDA tensor reaches the kernel or raises.  Every N is served
+its ``launches`` attribute (``kernels.count_launch``); for CPU tensors it
+runs its plain PyTorch version (``*_plain``), which materialises the
+(N, N) logits, and counts nothing.  A CUDA tensor reaches the kernel or raises.  Every N is served
 (the kernels mask the ragged edge); D is at most ``MAX_DIM``.
 """
 
@@ -226,7 +226,7 @@ def contrastive_fwd(a, b):
                 part.data_ptr(), counters.data_ptr(), N, D4, S,
                 _stream_of(dev))
     _raise_on(err, "contrastive_fwd")
-    contrastive_fwd.launches += 1
+    kernels.count_launch(contrastive_fwd)
     return logz, diag
 
 
@@ -253,7 +253,7 @@ def _bwd(wrapper, which, a, b, logz, g_over_n, plain):
                 g_over_n.data_ptr(), out.data_ptr(), part.data_ptr(),
                 counters.data_ptr(), N, D4, S, _stream_of(dev))
     _raise_on(err, name)
-    wrapper.launches += 1
+    kernels.count_launch(wrapper)
     return out[:, :D] if D4 != D else out
 
 

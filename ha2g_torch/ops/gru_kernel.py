@@ -6,7 +6,8 @@ and backward.
 ``ha2g_tpu/ops/pallas_gru.py::_kernel``) on CUDA tensors, and its plain
 PyTorch version ``gru_recurrence_plain`` on CPU tensors.  A CUDA tensor
 either reaches the kernel or raises.  ``gru_recurrence.launches`` counts
-kernel launches (under a lock: serving launches from several threads).
+the kernel's executions, a CUDA graph's replays included
+(``kernels.count_launch``).
 
 Layout (same as the TPU kernel): xp (T, 2, B, 3H) input projections with
 direction 1 already time-reversed, h0 (2, B, H), w_hh (2, H, 3H),
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -43,7 +43,6 @@ from ha2g_torch.utils.roofline import kernel_call
 
 SOURCE = kernels.CSRC / "gru_recurrence.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_count_lock = threading.Lock()
 
 # the cluster split, as csrc/gru_recurrence.cu computes it
 CLUSTER = 8            # CTAs per cluster
@@ -275,8 +274,7 @@ def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
                 xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
                 b_hh.data_ptr(), out.data_ptr(), T, B, H,
                 _DTYPE_CODES[xp.dtype])
-    with _count_lock:
-        gru_recurrence.launches += 1
+    kernels.count_launch(gru_recurrence)
     return out
 
 
@@ -351,7 +349,7 @@ def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
         _launch("gru_backward_loop", _lib().ha2g_gru_backward, xp.device,
                 *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
                 T, B, H, _DTYPE_CODES[xp.dtype])
-    gru_backward_loop.launches += 1
+    kernels.count_launch(gru_backward_loop)
     return d_gx, d_gh, d_h0
 
 

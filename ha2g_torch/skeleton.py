@@ -145,9 +145,28 @@ class SkeletonSpec:
     def extract_level_target(self, target: torch.Tensor,
                              level: int) -> torch.Tensor:
         """target (..., n_bones*3) -> (..., level_dim(level))."""
-        cols = torch.as_tensor(self.level_slice_cols(level),
-                               device=target.device)
+        cols, = self.on_device("level_slice_cols", level, target.device)
         return target.index_select(-1, cols)
+
+    @functools.cached_property
+    def _on_device(self) -> dict:
+        return {}
+
+    def on_device(self, table: str, level: int, device) -> tuple:
+        """The index arrays of ``table`` (``level_slice_cols`` or
+        ``routing_indices``) at ``level`` as tensors on ``device``, uploaded
+        once: an upload from pageable host memory synchronises, which a
+        CUDA graph's capture refuses.  Made outside inference mode, so
+        training can save them for its backward."""
+        key = (table, level, torch.device(device))
+        hit = self._on_device.get(key)
+        if hit is None:
+            arrays = getattr(self, table)(level)
+            arrays = arrays if isinstance(arrays, tuple) else (arrays,)
+            with torch.inference_mode(False):
+                hit = tuple(torch.as_tensor(a, device=device) for a in arrays)
+            self._on_device[key] = hit
+        return hit
 
     def routing_indices(self, level: int) -> tuple[np.ndarray, np.ndarray]:
         """(src_cols, dst_cols) such that

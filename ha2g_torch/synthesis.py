@@ -21,7 +21,9 @@ The hierarchy has a second loop that computes the same thing,
 does not depend on the carry, so it runs once over all windows at W-fold
 batch; the cascade, carry and cross-fade then run per window.
 ``run_fused`` can take the batch in chunks (pinned staging, an upload and
-a download stream beside the compute stream) and pull float16.
+a download stream beside the compute stream) and pull float16.  On the
+card its per-window cascade is captured once as a CUDA graph and replayed
+window after window (``_CascadeGraph``).
 
 Every GRU recurrence goes through kernel B1 on CUDA.  The speaker-z noise
 comes from a ``torch.Generator`` (seed 0 when none is given), drawn in
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ha2g_torch import kernels
 from ha2g_torch.config import Config
 from ha2g_torch.data.dataset import spectrogram_length_for
 from ha2g_torch.data.vocab import EOS_TOKEN, SOS_TOKEN, Vocab
@@ -129,6 +132,78 @@ def _cross_fade(prev_tail: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     n = head.shape[1]
     j = torch.arange(n, device=head.device, dtype=head.dtype).view(1, n, 1)
     return prev_tail * (n - j) / (n + 1) + head * (j + 1) / (n + 1)
+
+
+def _graphable(device: torch.device, generator, gens) -> bool:
+    """Whether the fused cascade can run as a CUDA graph: on the card, the
+    levels in eval mode (a graph keeps the mode it was captured in), and
+    the speaker-z noise drawn from a generator on the same device, or none
+    drawn (no level with a speaker z)."""
+    if device.type != "cuda" or any(g.training for g in gens):
+        return False
+    return (_indexed(generator.device) == device
+            or all(g.z_type == "none" for g in gens))
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with the current CUDA device's index where it names
+    none (a ``torch.Generator("cuda")`` does not)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _CascadeGraph:
+    """One CUDA graph of a window's level cascade at one key (batch rows,
+    device, compute dtype), captured from ``step`` and replayed for every
+    later window at that key.
+
+    Static buffers hold the window's inputs (``text_w``, ``blend_w``, the
+    carry ``tail`` and ``vids``) and the output; a replay copies the
+    window's inputs in, launches the graph and returns a copy of the
+    output, so the next replay may overwrite it.  The speaker-z noise is
+    drawn from a generator registered with the graph: its state is set
+    from the caller's generator before the replay and written back after
+    it, so a replay draws the numbers, and leaves the caller's generator
+    where, the eager step would.  The graph reads the weights by address:
+    the live parameters, cast as the eager step casts them, so an in-place
+    update (``load_state_dict``) reaches the next replay, and a module
+    replaced by another does not (the graph keeps ``step``, and with it
+    the modules it captured, alive).
+
+    The graphs of one synthesizer and device share one memory pool and one
+    lock: a replay holds the lock from its copies to its output's copy,
+    and its stream waits on the last replay's ``free`` event first, so
+    replays of the pool never overlap, whatever thread or stream calls."""
+
+    def __init__(self, step, inputs, shared: dict):
+        device = inputs[0].device
+        self.step, self.shared = step, shared
+        self.inputs = [x.clone() for x in inputs]
+        self.generator = torch.Generator(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        with kernels.captured_launches() as self.launches, torch.cuda.graph(
+                self.graph, pool=shared["pool"], stream=shared["stream"],
+                capture_error_mode="thread_local"):
+            self.out = step(*self.inputs, self.generator)
+
+    def __call__(self, inputs, generator) -> torch.Tensor:
+        sync = _indexed(generator.device) == self.generator.device
+        with self.shared["lock"]:
+            stream = torch.cuda.current_stream(self.out.device)
+            stream.wait_event(self.shared["free"])
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+            if sync:
+                self.generator.set_state(generator.get_state())
+            self.graph.replay()
+            if sync:
+                generator.set_state(self.generator.get_state())
+            out = self.out.clone()
+            self.shared["free"].record(stream)
+        kernels.add_launches(self.launches)
+        return out
 
 
 class SlidingWindowSynthesizer:
@@ -294,7 +369,20 @@ class SlidingWindowSynthesizer:
 class HierarchySynthesizer(SlidingWindowSynthesizer):
     """A HierarchySystem's window: the audio encoder on the window's
     spectrogram, then the level cascade (synthesize_hierarchy.py:127-146);
-    besides the window loop, a fused loop (``generate_fused``)."""
+    besides the window loop, a fused loop (``generate_fused``).
+
+    ``window_counts`` counts the fused loop's windows: "eager" (run op by
+    op), "replayed" (a CUDA graph's replay) and "captured" (graphs
+    captured)."""
+
+    def __init__(self, system, state: dict):
+        super().__init__(system, state)
+        # the fused loop's CUDA graphs by key, and what the graphs of one
+        # device share (pool, capture stream, lock, free event)
+        self._graphs: dict = {}
+        self._graph_shared: dict = {}
+        self._lock = threading.Lock()
+        self.window_counts = {"eager": 0, "replayed": 0, "captured": 0}
 
     def window_step(self, inputs, generator):
         vids = inputs["vids"]
@@ -368,6 +456,16 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         ``out_dtype=np.float16`` casts the poses on the device and pulls
         half the bytes; the result is float32 either way.
 
+        On the card, without ``devices``, and where the plan's generator
+        lies on the synthesizer's device (or no level draws noise), the
+        window cascade runs as a CUDA graph (``_CascadeGraph``): the first
+        window at a new (batch rows, device, compute dtype) runs op by op
+        and the graph is captured after it; every later window, in this
+        call or a later one, replays it.  The replays give the op-by-op
+        numbers bit for bit, noise included.  Everything else (CPU
+        tensors, a CPU generator, ``devices``) runs the same cascade op by
+        op.
+
         The speaker-z noise is drawn from the plan's generator chunk after
         chunk, window by window, at the chunk's batch: chunking changes
         the draw exactly as synthesizing the clips in smaller batches
@@ -417,7 +515,7 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         def compute(x, rows):
             return self._fused_device(x, plan["text_all"][:, rows],
                                       plan["vids"][rows], plan, gen,
-                                      modules).to(pull)
+                                      modules, graphs=True).to(pull)
 
         if self.device.type != "cuda":
             return [compute(audio[rows], rows).numpy() for rows in chunks]
@@ -516,10 +614,12 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
         return self._replicas[device]
 
     def _fused_device(self, audio, text_all, vids, plan, generator,
-                      modules) -> torch.Tensor:
+                      modules, graphs: bool = False) -> torch.Tensor:
         """The fused loop on audio (float32, int16 or uint8 mu-law; a host
         array, or a tensor on the modules' device) -> the poses on that
-        device, float32 (B, total_frames, pose_dim)."""
+        device, float32 (B, total_frames, pose_dim).  ``graphs``: the
+        single-device path, where the cascade may run as a CUDA graph
+        (``run_fused``)."""
         audio_enc, gens = modules
         device = next(audio_enc.parameters()).device
         cfg = self.cfg
@@ -542,18 +642,58 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
                           self.dtype)[-1]                    # (L, W*B, T, 32)
         blend_all = blend.unflatten(1, (W, B)).transpose(0, 1)  # (W, L, B, ..)
 
+        graphs = graphs and _graphable(device, generator, gens)
         pieces = []
         tail = torch.zeros((B, n, self.spec.pose_dim), device=device)
         for w in range(W):
             with span("ha2g.synth.window", w):
-                out = self._cascade_step(text_all[w], blend_all[w], tail,
-                                         vids, generator, gens)
+                out = self._window((text_all[w], blend_all[w], tail, vids),
+                                   generator, gens, graphs, w)
                 head = out[:, :n] if w == 0 else _cross_fade(tail, out[:, :n])
                 tail = out[:, -n:]
                 # windows 0..W-2 keep their first T-n frames, the last all T
                 pieces.append(torch.cat(
                     [head, out[:, n:T if w == W - 1 else T - n]], dim=1))
         return torch.cat(pieces, dim=1)
+
+    def _window(self, inputs, generator, gens, graphs: bool, w: int):
+        """One window's cascade on ``inputs`` (text_w, blend_w, tail,
+        vids): the key's graph replayed where there is one; else op by op,
+        and with ``graphs`` the key's graph captured after it."""
+        text_w = inputs[0]
+        key = (text_w.shape[0], text_w.device, self.dtype)
+        graph = self._graphs.get(key) if graphs else None
+        if graph is not None:
+            with span("ha2g.synth.replay", w):
+                out = graph(inputs, generator)
+            self._count("replayed")
+            return out
+        out = self._cascade_step(*inputs, generator, gens)
+        self._count("eager")
+        if graphs:
+            def step(text_w, blend_w, tail, vids, g):
+                return self._cascade_step(text_w, blend_w, tail, vids, g,
+                                          gens)
+            shared = self._shared(text_w.device)
+            with shared["lock"]:        # one capture at a time
+                if key not in self._graphs:
+                    self._graphs[key] = _CascadeGraph(step, inputs, shared)
+                    self._count("captured")
+        return out
+
+    def _shared(self, device: torch.device) -> dict:
+        """What the graphs on ``device`` share (see ``_CascadeGraph``)."""
+        with self._lock:
+            if device not in self._graph_shared:
+                self._graph_shared[device] = {
+                    "pool": torch.cuda.graph_pool_handle(),
+                    "stream": torch.cuda.Stream(device),
+                    "lock": threading.Lock(), "free": torch.cuda.Event()}
+            return self._graph_shared[device]
+
+    def _count(self, kind: str) -> None:
+        with self._lock:
+            self.window_counts[kind] += 1
 
     @torch.inference_mode()
     def generate_fused(self, audio: np.ndarray, words_per_clip, lang: Vocab,

@@ -16,14 +16,16 @@ def build_pre_seq(level_target: torch.Tensor, prev_out, level: int,
     """pre_seq for one level: the first n_pre frames are the level target
     plus a constraint bit of 1; later frames hold the previous level's
     output copied to this level's bone columns (zeros for level 0).  The
-    routing is one-to-one, so an indexed copy moves the values exactly."""
+    routing is one-to-one, so an indexed copy moves the values exactly;
+    its index tensors are the spec's, uploaded once a device
+    (``SkeletonSpec.on_device``)."""
     B, T, D = level_target.shape
     pre = level_target.new_zeros((B, T, D + 1))
     pre[:, :n_pre, :D] = level_target[:, :n_pre]
     pre[:, :n_pre, D] = 1.0
     if prev_out is not None:
-        src, dst = (torch.as_tensor(c, device=level_target.device)
-                    for c in spec.routing_indices(level - 1))
+        src, dst = spec.on_device("routing_indices", level - 1,
+                                  level_target.device)
         pre[:, n_pre:, dst] = prev_out[:, n_pre:].index_select(-1, src) \
             .to(pre.dtype)
     return pre

@@ -15,7 +15,8 @@ layer) in ``args``, so a trace aggregates them by name:
   ``ha2g.synth.upload`` (a chunk's pinned staging and upload),
   ``ha2g.synth.mel`` (the log-mel front-end and its window stack),
   ``ha2g.synth.window`` (one window: cascade, cross-fade, cat; args the
-  window), ``ha2g.synth.pull`` (the download, the closing synchronise and
+  window), ``ha2g.synth.replay`` (inside a window, the replay of its
+  cascade's CUDA graph; args the window), ``ha2g.synth.pull`` (the download, the closing synchronise and
   the host concatenation);
 * model: ``ha2g.model.audio_encoder`` (``ResNetSE``) and
   ``ha2g.model.se_block`` (each ``SEBasicBlock``), ``ha2g.model.level``

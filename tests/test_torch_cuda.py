@@ -464,6 +464,100 @@ def test_chunked_run_fused_matches_one_call(cuda, monkeypatch):
             np.testing.assert_array_equal(f16, got.astype(np.float16))
 
 
+def _graph_case(device, B):
+    """A narrow bf16 TED Expressive hierarchy (6 levels, 2 GRU layers,
+    speaker z) and a batch of B clips of 4.5 s."""
+    import numpy as np
+
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.train.hierarchy import HierarchySystem
+
+    cfg = Config(model="hierarchy", dataset="ted_expressive", pose_dim=126,
+                 n_poses=34, n_pre_poses=4, hidden_size=32, n_layers=2,
+                 wordembed_dim=16, z_type="speaker", compute_dtype="bfloat16")
+    system = HierarchySystem(cfg, 20, 5, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    synth = make_synthesizer(system, system.state_dict())
+    lang = Vocab("words")
+    for i in range(20 - lang.n_words):
+        lang.index_word(f"w{i}")
+    rng = np.random.default_rng(B)
+    audio = (rng.normal(size=(B, int(4.5 * 16000))) * 0.1).astype(np.float32)
+    words = [[(f"w{j}", 0.3 * j + 0.1 * b, 0.3 * j + 0.2) for j in range(9)]
+             for b in range(B)]
+
+    def plan(seed, generator_device=device):
+        return synth.prepare_fused(
+            words, lang, np.arange(B) % 5, audio.shape[1],
+            torch.Generator(generator_device).manual_seed(seed))
+    return synth, audio, plan
+
+
+@pytest.mark.parametrize("B,chunk", [(5, 0), (5, 2), (1, 0)])
+def test_graphed_run_fused_equals_eager_bit_for_bit(cuda, B, chunk):
+    """The graphed fused loop (a generator on the card, one device) against
+    ``devices=[card]``, which runs the same cascade op by op: equal bit for
+    bit and the generators in the same state, on the first call (window 0
+    of each key op by op, then captured) and on a second (all replays);
+    B1 launched 6 levels x 2 layers a window a chunk on both routes, and
+    the window counter W - 1 replays a key on the first call, W on the
+    second, one capture a key."""
+    import numpy as np
+
+    synth, audio, plan = _graph_case(cuda, B)
+    keys = 2 if chunk and B % chunk else 1
+    n_chunks = -(-B // chunk) if chunk else 1
+    for call in range(2):
+        graphed, eager = plan(7 + call), plan(7 + call)
+        counts = dict(synth.window_counts)
+        before = gru_recurrence.launches
+        got = synth.run_fused(audio, graphed, chunk=chunk)
+        assert gru_recurrence.launches - before == \
+            graphed["num_sub"] * 6 * 2 * n_chunks
+        W = graphed["num_sub"]
+        assert {k: synth.window_counts[k] - counts[k] for k in counts} == {
+            "eager": keys if call == 0 else 0,
+            "replayed": W * n_chunks - (keys if call == 0 else 0),
+            "captured": keys if call == 0 else 0}
+        before = gru_recurrence.launches
+        want = synth.run_fused(audio, eager, chunk=chunk, devices=[cuda])
+        assert gru_recurrence.launches - before == W * 6 * 2 * n_chunks
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(graphed["generator"].get_state(),
+                           eager["generator"].get_state())
+    assert len(synth._graphs) == keys
+
+
+def test_graph_reads_the_weights_by_address(cuda):
+    """An in-place change of the last level's output bias reaches the next
+    replay, which then equals the op-by-op route with the new weights."""
+    import numpy as np
+
+    synth, audio, plan = _graph_case(cuda, 5)
+    first = synth.run_fused(audio, plan(3))
+    replayed = synth.window_counts["replayed"]
+    with torch.no_grad():
+        synth.system.gens[-1].out[2].bias.add_(0.25)
+    got = synth.run_fused(audio, plan(3))
+    assert synth.window_counts["replayed"] - replayed == plan(3)["num_sub"]
+    assert not np.array_equal(got, first)
+    np.testing.assert_array_equal(
+        got, synth.run_fused(audio, plan(3), devices=[cuda]))
+
+
+def test_cpu_generator_on_the_card_runs_op_by_op(cuda):
+    """A CPU generator (``prepare_fused``'s default) with speaker z: no
+    capture, every window op by op."""
+    synth, audio, plan = _graph_case(cuda, 5)
+    p = plan(1, "cpu")
+    synth.run_fused(audio, p)
+    assert synth.window_counts == {"eager": p["num_sub"], "replayed": 0,
+                                   "captured": 0}
+
+
 def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):
     """``torchrun -m ha2g_torch.cli train`` on every card of the machine (up
     to 4; one NCCL rank a card, ``--fsdp_devices 2``: FSDP's gathers and
