@@ -5,10 +5,11 @@ the result line.
 A cell names a configuration (``benchmark/configs/<name>.json``, the
 program's config fields flat, plus ``n_words``, ``n_speakers`` and what was
 ``assumed``) and a traffic mix (``benchmark/traffic/<name>.json``, whose
-``driver`` names ``benchmark/drivers/<driver>.py``).  Its correctness
-limits are ``benchmark/limits/<cell>.json``, and each per-layer metric is
-read by ``benchmark/metrics/<metric>.py``.  Adding any of these is adding
-files and entries; nothing here changes.
+``driver`` names ``benchmark/drivers/<driver>.py``, whose CPU tests run
+at the tiny sizes of ``benchmark/tests/tiny/<driver>.json``).  Its
+correctness limits are ``benchmark/limits/<cell>.json``, and each
+per-layer metric is read by ``benchmark/metrics/<metric>.py``.  Adding
+any of these is adding files and entries; nothing here changes.
 """
 
 from __future__ import annotations
@@ -114,8 +115,11 @@ def make_weights(model, seed: int, device) -> dict:
     the program shares): Linear / Conv weights and biases U(+-1/sqrt(fan
     in)); the SE-ResNet's convolutions N(0, 2/fan_out); GRU tensors
     U(+-1/sqrt(H)); embeddings N(0, 1); the TCN decoder N(0, 0.01^2) with
-    a zero bias; weight norm's g = ||v||; batch norm 1, 0 and running
-    statistics 0, 1.  One uniform and one normal draw on the device."""
+    a zero bias; weight norm's g = ||v||; batch norm (1d or 2d) 1, 0 and
+    running statistics 0, 1; layer norm 1, 0; any other parameter
+    registered on a module itself (a learned embedding, a null condition)
+    N(0, 1).  One uniform and one normal draw on the device.  A persistent
+    buffer other than batch norm's has no rule and is refused."""
     import torch
     import torch.nn as nn
     from reference.model import BiGRU, ResNetSE, SEBasicBlock, \
@@ -162,12 +166,18 @@ def make_weights(model, seed: int, device) -> dict:
         elif isinstance(m, BiGRU):
             for n, p in m.named_parameters(recurse=False):
                 uniform.append((key + n, p.shape, 1 / math.sqrt(m.hidden)))
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             fixed[key + "weight"] = torch.ones(m.num_features)
             fixed[key + "bias"] = torch.zeros(m.num_features)
             fixed[key + "running_mean"] = torch.zeros(m.num_features)
             fixed[key + "running_var"] = torch.ones(m.num_features)
             fixed[key + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        elif isinstance(m, nn.LayerNorm):
+            for n, p in m.named_parameters(recurse=False):
+                fixed[key + n] = (torch.ones if n == "weight" else torch.zeros)(p.shape)
+        else:
+            for n, p in m.named_parameters(recurse=False):
+                normal.append((key + n, p.shape, 1.0))
     gen = torch.Generator(device).manual_seed(seed)
     out = {}
     for plan, draw in ((uniform, lambda n: torch.rand(

@@ -3,6 +3,7 @@ at tiny widths on the CPU.  Nothing here imports JAX."""
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -11,19 +12,27 @@ import pytest
 BENCH = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
-# tiny widths for a CPU run: every cell's code path, seconds not hours
-TINY_CONFIG = {"hidden_size": 16, "wordembed_dim": 16, "n_layers": 2,
-               "n_words": 40, "n_speakers": 5, "batch_size": 4,
-               "compute_dtype": "float32"}
-TINY_TRAFFIC = {"batch_synth": {"clips": 3, "clip_seconds": 4.5, "ring": 2,
-                                "warmup_calls": 1, "check_rows": 2,
-                                "check_calls": 2, "trace_calls": 1},
-                "train_gan": {"steps_per_epoch": 3}}
+# tiny widths for a CPU run, one file a driver: every cell's code path,
+# seconds not hours
+TINY = Path(__file__).resolve().parent / "tiny"
 
 
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips on machines without one")
+
+
+def tiny(cell):
+    """The cell's configuration and traffic with ``tiny/<driver>.json``'s
+    ``config`` and ``traffic`` laid over them -> (config, traffic)."""
+    path = TINY / f"{cell.traffic['driver']}.json"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no tiny CPU settings for driver {cell.traffic['driver']!r}: add "
+            f"{path.relative_to(BENCH.parent)} with its tiny \"config\" and "
+            f"\"traffic\"")
+    t = json.loads(path.read_text())
+    return {**cell.config, **t["config"]}, {**cell.traffic, **t["traffic"]}
 
 
 def tiny_run(name: str, seed: int = 12345678901, seconds: float = 1.0,
@@ -34,10 +43,10 @@ def tiny_run(name: str, seed: int = 12345678901, seconds: float = 1.0,
     import harness
     import run as bench_run
     cell = harness.load_cell(name)
-    cfg = {**cell.config, **TINY_CONFIG, **(config or {})}
-    tr = {**cell.traffic, **TINY_TRAFFIC[cell.traffic["driver"]], **(traffic or {})}
+    cfg, tr = tiny(cell)
     return bench_run.run_cell(cell, seed, seconds, False, torch.device("cpu"),
-                              config=cfg, traffic=tr)
+                              config={**cfg, **(config or {})},
+                              traffic={**tr, **(traffic or {})})
 
 
 @pytest.fixture

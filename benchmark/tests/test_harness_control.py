@@ -12,7 +12,7 @@ import torch
 
 import harness
 from calibrate import readings
-from conftest import BENCH, TINY_CONFIG, TINY_TRAFFIC
+from conftest import BENCH, tiny
 
 CELLS = [w["name"] for w in json.loads((BENCH.parent / "BENCHMARK.json")
                                        .read_text())["workloads"]]
@@ -21,8 +21,7 @@ CELLS = [w["name"] for w in json.loads((BENCH.parent / "BENCHMARK.json")
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_not_correct(name):
     cell = harness.load_cell(name)
-    cfg = {**cell.config, **TINY_CONFIG}
-    tr = {**cell.traffic, **TINY_TRAFFIC[cell.traffic["driver"]]}
+    cfg, tr = tiny(cell)
     r = readings(cell, 99, 0.1, ("control",), torch.device("cpu"), cfg, tr)
     assert any(r["control"][k] > lim["limit"] for k, lim in cell.limits.items()
                if k in r["control"]), r
