@@ -82,6 +82,20 @@ class Config:
     # keep both optimisers' state in checkpoints (needed to resume)
     save_optimizer_state: bool = True
 
+    # pose_diffusion (DiffGesture, models/diffusion.py): the denoiser's
+    # width, blocks, heads and MLP ratio; the DDPM schedule's steps and its
+    # first and last beta; the null condition's training probability and
+    # the classifier-free guidance scale
+    diff_hidden_dim: int = 512
+    block_depth: int = 8
+    n_heads: int = 8
+    mlp_ratio: int = 4
+    diffusion_steps: int = 500
+    beta_1: float = 1e-4
+    beta_T: float = 0.02
+    null_cond_prob: float = 0.1
+    guidance_scale: float = 1.5
+
     compute_dtype: str = "float32"  # float32 | bfloat16
     # the mesh of a multi-process run (torchrun; parallel/mesh.py): its
     # FSDP size, over which parameters and Adam moments shard (1 = pure

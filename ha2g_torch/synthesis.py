@@ -13,8 +13,10 @@ waveform window), ``Seq2SeqSynthesizer`` (the seq2seq net on the window's
 SOS..EOS word sequence, teacher-seeded with the carry; the clip is then
 smoothed across window joints, ``polyfit_smooth``) and
 ``EmbedSynthesizer`` (joint_embedding decoding from the speech latent of
-the window's words and raw waveform).  ``make_synthesizer`` picks by the
-config's model.
+the window's words and raw waveform) and ``DiffusionSynthesizer``
+(DiffGesture's guided denoising chain on the raw waveform window, each
+window's chain a CUDA graph's replay on the card).  ``make_synthesizer``
+picks by the config's model.
 
 The hierarchy has a second loop that computes the same thing,
 ``generate_fused`` (``prepare_fused`` + ``run_fused``): the audio encoder
@@ -154,33 +156,45 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 class _CascadeGraph:
-    """One CUDA graph of a window's level cascade at one key (batch rows,
-    device, compute dtype), captured from ``step`` and replayed for every
-    later window at that key.
+    """One CUDA graph of a step function at one key, captured from ``step``
+    and replayed for every later call at that key: a hierarchy window's
+    level cascade (key: batch rows, device, compute dtype), or a diffusion
+    window's whole denoising chain (the same key).
 
-    Static buffers hold the window's inputs (``text_w``, ``blend_w``, the
-    carry ``tail`` and ``vids``) and the output; a replay copies the
-    window's inputs in, launches the graph and returns a copy of the
-    output, so the next replay may overwrite it.  The speaker-z noise is
-    drawn from a generator registered with the graph: its state is set
-    from the caller's generator before the replay and written back after
-    it, so a replay draws the numbers, and leaves the caller's generator
-    where, the eager step would.  The graph reads the weights by address:
-    the live parameters, cast as the eager step casts them, so an in-place
-    update (``load_state_dict``) reaches the next replay, and a module
-    replaced by another does not (the graph keeps ``step``, and with it
-    the modules it captured, alive).
+    ``step(*inputs, generator) -> tensor``: static buffers hold its inputs
+    (for the cascade ``text_w``, ``blend_w``, the carry ``tail`` and
+    ``vids``; for the chain the window's condition) and its output; a
+    replay copies the call's inputs in, launches the graph and returns a
+    copy of the output, so the next replay may overwrite it.  Whatever
+    noise the step draws comes from a generator registered with the graph:
+    its state is set from the caller's generator before the replay and
+    written back after it, so a replay draws the numbers, and leaves the
+    caller's generator where, the eager step would.  The graph reads the
+    weights by address: the live parameters, cast inside the step as the
+    eager step casts them, so an in-place update (``load_state_dict``)
+    reaches the next replay, and a module replaced by another does not (the
+    graph keeps ``step``, and with it the modules it captured, alive).
+    ``warmup`` runs the step once op by op on the capture stream with the
+    graph's own generator before the capture, for a step whose kernels
+    have not run on the device yet (the hierarchy's first window runs op
+    by op before its capture, and needs none).
 
     The graphs of one synthesizer and device share one memory pool and one
     lock: a replay holds the lock from its copies to its output's copy,
     and its stream waits on the last replay's ``free`` event first, so
     replays of the pool never overlap, whatever thread or stream calls."""
 
-    def __init__(self, step, inputs, shared: dict):
+    def __init__(self, step, inputs, shared: dict, warmup: bool = False):
         device = inputs[0].device
         self.step, self.shared = step, shared
         self.inputs = [x.clone() for x in inputs]
         self.generator = torch.Generator(device)
+        if warmup:
+            stream = shared["stream"]
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                step(*self.inputs, self.generator)
+            torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(self.generator)
         with kernels.captured_launches() as self.launches, torch.cuda.graph(
@@ -220,6 +234,8 @@ class SlidingWindowSynthesizer:
     uses_word_seq = False
     # cubic smoothing across window joints after the loop (seq2seq)
     smooth = False
+    # the span around each window of ``generate`` (args: the window), if any
+    window_span: Optional[str] = None
 
     def __init__(self, system, state: dict):
         system.load_state_dict(state, strict=True)
@@ -319,33 +335,35 @@ class SlidingWindowSynthesizer:
         pieces = []
         carry = torch.zeros((B, n, self.spec.pose_dim), device=self.device)
         for i in range(num_sub):
-            inputs = {"text_w": text_all[i], "carry": carry, "vids": vids_t}
-            if self.uses_spec:
-                s0 = math.floor(i * stride_time / clip_seconds * S_total)
-                s1 = s0 + spec_len
-                spec = full_spec if s1 <= S_total else F.pad(
-                    full_spec, (0, s1 - S_total), mode="replicate")
-                inputs["spec_w"] = spec[:, :, s0:s1]
-            if self.uses_audio:
-                a0 = math.floor(i * stride_time / clip_seconds * n_samples)
-                aw = wav[:, a0:a0 + audio_len]
-                if aw.shape[1] < audio_len:
-                    if i == num_sub - 1:
-                        end_padding = (audio_len - aw.shape[1]) / SR
-                    aw = F.pad(aw, (0, audio_len - aw.shape[1]))
-                inputs["audio_w"] = aw
-            if self.uses_word_seq:
-                inputs.update(self._word_seqs(
-                    words_per_clip, lang, i * stride_time,
-                    i * stride_time + unit_time))
-            out = self.window_step(inputs, generator)
-            carry = out[:, -n:]
-            if pieces:
-                last = pieces[-1]
-                pieces[-1] = last[:, :-n]
-                out = torch.cat([_cross_fade(last[:, -n:], out[:, :n]),
-                                 out[:, n:]], dim=1)
-            pieces.append(out)
+            with span(self.window_span, i):
+                inputs = {"text_w": text_all[i], "carry": carry,
+                          "vids": vids_t}
+                if self.uses_spec:
+                    s0 = math.floor(i * stride_time / clip_seconds * S_total)
+                    s1 = s0 + spec_len
+                    spec = full_spec if s1 <= S_total else F.pad(
+                        full_spec, (0, s1 - S_total), mode="replicate")
+                    inputs["spec_w"] = spec[:, :, s0:s1]
+                if self.uses_audio:
+                    a0 = math.floor(i * stride_time / clip_seconds * n_samples)
+                    aw = wav[:, a0:a0 + audio_len]
+                    if aw.shape[1] < audio_len:
+                        if i == num_sub - 1:
+                            end_padding = (audio_len - aw.shape[1]) / SR
+                        aw = F.pad(aw, (0, audio_len - aw.shape[1]))
+                    inputs["audio_w"] = aw
+                if self.uses_word_seq:
+                    inputs.update(self._word_seqs(
+                        words_per_clip, lang, i * stride_time,
+                        i * stride_time + unit_time))
+                out = self.window_step(inputs, generator)
+                carry = out[:, -n:]
+                if pieces:
+                    last = pieces[-1]
+                    pieces[-1] = last[:, :-n]
+                    out = torch.cat([_cross_fade(last[:, -n:], out[:, :n]),
+                                     out[:, n:]], dim=1)
+                pieces.append(out)
         result = torch.cat(pieces, dim=1).cpu().numpy()
         if self.smooth:
             result = np.stack([polyfit_smooth(r, cfg) for r in result])
@@ -366,7 +384,46 @@ class SlidingWindowSynthesizer:
                              executor=executor)
 
 
-class HierarchySynthesizer(SlidingWindowSynthesizer):
+class _GraphedSynthesizer(SlidingWindowSynthesizer):
+    """A synthesizer whose window work may replay CUDA graphs
+    (``_CascadeGraph``): its graphs by key, what the graphs of one device
+    share (pool, capture stream, lock, free event), and a counter of the
+    work "eager" (run op by op), "replayed" (in a graph's replay) and
+    "captured" (in graphs captured)."""
+
+    def __init__(self, system, state: dict):
+        super().__init__(system, state)
+        self._graphs: dict = {}
+        self._graph_shared: dict = {}
+        self._lock = threading.Lock()
+        self._counts = {"eager": 0, "replayed": 0, "captured": 0}
+
+    def _capture(self, key, step, inputs, warmup: bool = False) -> bool:
+        """Capture ``step`` on ``inputs`` as the graph of ``key`` unless
+        another thread did; -> whether this call captured it."""
+        shared = self._shared(inputs[0].device)
+        with shared["lock"]:        # one capture at a time
+            if key in self._graphs:
+                return False
+            self._graphs[key] = _CascadeGraph(step, inputs, shared, warmup)
+            return True
+
+    def _shared(self, device: torch.device) -> dict:
+        """What the graphs on ``device`` share (see ``_CascadeGraph``)."""
+        with self._lock:
+            if device not in self._graph_shared:
+                self._graph_shared[device] = {
+                    "pool": torch.cuda.graph_pool_handle(),
+                    "stream": torch.cuda.Stream(device),
+                    "lock": threading.Lock(), "free": torch.cuda.Event()}
+            return self._graph_shared[device]
+
+    def _count(self, kind: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[kind] += n
+
+
+class HierarchySynthesizer(_GraphedSynthesizer):
     """A HierarchySystem's window: the audio encoder on the window's
     spectrogram, then the level cascade (synthesize_hierarchy.py:127-146);
     besides the window loop, a fused loop (``generate_fused``).
@@ -377,12 +434,7 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
 
     def __init__(self, system, state: dict):
         super().__init__(system, state)
-        # the fused loop's CUDA graphs by key, and what the graphs of one
-        # device share (pool, capture stream, lock, free event)
-        self._graphs: dict = {}
-        self._graph_shared: dict = {}
-        self._lock = threading.Lock()
-        self.window_counts = {"eager": 0, "replayed": 0, "captured": 0}
+        self.window_counts = self._counts
 
     def window_step(self, inputs, generator):
         vids = inputs["vids"]
@@ -674,26 +726,9 @@ class HierarchySynthesizer(SlidingWindowSynthesizer):
             def step(text_w, blend_w, tail, vids, g):
                 return self._cascade_step(text_w, blend_w, tail, vids, g,
                                           gens)
-            shared = self._shared(text_w.device)
-            with shared["lock"]:        # one capture at a time
-                if key not in self._graphs:
-                    self._graphs[key] = _CascadeGraph(step, inputs, shared)
-                    self._count("captured")
+            if self._capture(key, step, inputs):
+                self._count("captured")
         return out
-
-    def _shared(self, device: torch.device) -> dict:
-        """What the graphs on ``device`` share (see ``_CascadeGraph``)."""
-        with self._lock:
-            if device not in self._graph_shared:
-                self._graph_shared[device] = {
-                    "pool": torch.cuda.graph_pool_handle(),
-                    "stream": torch.cuda.Stream(device),
-                    "lock": threading.Lock(), "free": torch.cuda.Event()}
-            return self._graph_shared[device]
-
-    def _count(self, kind: str) -> None:
-        with self._lock:
-            self.window_counts[kind] += 1
 
     @torch.inference_mode()
     def generate_fused(self, audio: np.ndarray, words_per_clip, lang: Vocab,
@@ -769,7 +804,63 @@ class EmbedSynthesizer(SlidingWindowSynthesizer):
                            dtype=self.dtype, generator=generator)[-1]
 
 
+class DiffusionSynthesizer(_GraphedSynthesizer):
+    """DiffGesture's window (``models/diffusion.py``): the raw-waveform
+    audio encoder and the condition from the carry, then the guided
+    denoising chain from fresh noise to the window's poses; the window loop
+    (carry, cross-fade) is ``generate``'s.
+
+    On the card, where the generator lies on the synthesizer's device, a
+    window's whole chain runs as a replay of one CUDA graph
+    (``_CascadeGraph``) captured at the first window of a (batch rows,
+    device, compute dtype) key, after one op-by-op run of the chain on the
+    capture stream as a warm-up, so every window's steps, the first's too,
+    are replays; the replays give the op-by-op numbers bit for bit, noise
+    included.  CPU tensors or a CPU generator run the same chain op by
+    op.
+
+    ``step_counts`` counts denoising steps: "eager" (run op by op),
+    "replayed" (in a graph's replay) and "captured" (in graphs
+    captured)."""
+
+    uses_spec = False
+    uses_audio = True
+    window_span = "ha2g.diffuse.window"
+
+    def __init__(self, system, state: dict):
+        super().__init__(system, state)
+        self.step_counts = self._counts
+
+    def window_step(self, inputs, generator):
+        model = self.system
+        with span("ha2g.diffuse.condition"):
+            cond = model.condition(inputs["carry"], inputs["audio_w"],
+                                   self.dtype)
+        with span("ha2g.diffuse.chain", model.steps):
+            return self._chain(cond, generator)
+
+    def _chain(self, cond, generator) -> torch.Tensor:
+        model, steps = self.system, self.system.steps
+        dev = cond.device
+        if dev.type != "cuda" or _indexed(generator.device) != dev:
+            self._count("eager", steps)
+            return model.sample(cond, generator, self.dtype)
+        key = (cond.shape[0], dev, self.dtype)
+        if key not in self._graphs:
+            model.tables(dev, self.dtype)     # uploaded before the capture
+
+            def step(cond, g):
+                return model.sample(cond, g, self.dtype)
+            if self._capture(key, step, (cond,), warmup=True):
+                self._count("captured", steps)
+        with span("ha2g.diffuse.replay", steps):
+            out = self._graphs[key]((cond,), generator)
+        self._count("replayed", steps)
+        return out
+
+
 SYNTHESIZERS = {"hierarchy": HierarchySynthesizer,
+                "pose_diffusion": DiffusionSynthesizer,
                 "multimodal_context": MultimodalSynthesizer,
                 "speech2gesture": S2GSynthesizer,
                 "seq2seq": Seq2SeqSynthesizer,

@@ -37,7 +37,8 @@ reference train.py:91-324 and evaluate_testset, train.py:326-508).
   only with ``save_result_video``; a failed render is logged.
 
 Every family of the JAX package: hierarchy, multimodal_context,
-speech2gesture, seq2seq, joint_embedding and gesture_autoencoder.
+speech2gesture, seq2seq, joint_embedding and gesture_autoencoder; and the
+port's own pose_diffusion (DiffGesture, ``train/diffusion.py``).
 
 Several processes (``torchrun``, or a process group the caller made) train
 as one global batch on the mesh of every rank, ``fsdp_devices`` of them
@@ -92,6 +93,8 @@ def build_system(cfg: Config, n_words: int, n_speakers: int,
     from ha2g_torch.train import baselines
     if cfg.model == "hierarchy":
         from ha2g_torch.train.hierarchy import HierarchySystem as cls
+    elif cfg.model == "pose_diffusion":
+        from ha2g_torch.train.diffusion import DiffusionSystem as cls
     elif cfg.model == "gesture_autoencoder" and cfg.pose_dim == 126:
         cls = baselines.MotionAESystem
     else:

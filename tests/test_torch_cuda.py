@@ -558,6 +558,52 @@ def test_cpu_generator_on_the_card_runs_op_by_op(cuda):
                                    "captured": 0}
 
 
+def test_graphed_diffusion_chain_equals_eager_bit_for_bit(cuda):
+    """A narrow bf16 DiffGesture (2 blocks, 16 steps): a window's chain
+    replayed from its CUDA graph (captured after a warm-up at the first
+    window) against the same chain op by op, a generator on the card:
+    equal bit for bit and the generators in the same state, at the
+    capture's call and at a later one; then ``generate`` over three
+    windows counts every step as replayed."""
+    import numpy as np
+
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.train.loop import build_system
+
+    cfg = Config(model="pose_diffusion", dataset="ted_expressive",
+                 pose_dim=126, n_poses=34, n_pre_poses=4,
+                 diff_hidden_dim=64, block_depth=2, n_heads=2,
+                 diffusion_steps=16, compute_dtype="bfloat16")
+    system = build_system(cfg, 4, 1, device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+    synth = make_synthesizer(system, system.state_dict())
+    rng = np.random.default_rng(0)
+    audio = (rng.normal(size=(3, int(4.5 * 16000))) * 0.1).astype(np.float32)
+    with torch.inference_mode():
+        cond = system.condition(
+            torch.zeros(3, 4, 126, device=cuda),
+            torch.from_numpy(audio[:, :36266]).to(cuda), synth.dtype)
+        for call in range(2):
+            graphed, eager = (torch.Generator(cuda).manual_seed(11 + call)
+                              for _ in range(2))
+            got = synth._chain(cond, graphed)
+            want = system.sample(cond, eager, synth.dtype)
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, want)
+            assert torch.equal(graphed.get_state(), eager.get_state())
+    assert synth.step_counts == {"eager": 0, "replayed": 2 * 16,
+                                 "captured": 16}
+    out = synth.generate(audio, [[]] * 3, Vocab("words"),
+                         np.zeros(3, np.int64),
+                         generator=torch.Generator(cuda).manual_seed(1))
+    assert np.isfinite(out).all() and out.shape == (3, 94, 126)
+    assert synth.step_counts == {"eager": 0, "replayed": 5 * 16,
+                                 "captured": 16}
+    assert len(synth._graphs) == 1
+
+
 def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):
     """``torchrun -m ha2g_torch.cli train`` on every card of the machine (up
     to 4; one NCCL rank a card, ``--fsdp_devices 2``: FSDP's gathers and
