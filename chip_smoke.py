@@ -17,14 +17,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    random rows at the train step's N = 96 * 34 and TED-Gesture's 256 * 34,
    and at a ragged N, D = 32 and 128; on aligned rows against their plain
    versions in float64 (tolerances that an fp32 product meets and a TF32
-   one does not); finite on rows with exact duplicates;
+   one does not); finite on rows with exact duplicates; the denoiser's
+   fused residual add and layer norm at the diffusion cell's (4352, 512)
+   bf16, 4349 rows, the broadcast positional table and float32;
 3. serving: synthesis requests through make_synthesizer(...).generate and
    generate_fused on the full-width 6-level TED Expressive hierarchy
    (hidden 300, 4-layer bi-GRU, full SE-ResNet, bf16 compute, random
    weights from a seed): output shape, finiteness and the B1 launch counts
    of every request; then the card's fp32 result against the same port on
    the CPU (plain versions) for a short clip, and the CPU's FLOP count
-   (``utils/roofline.count_flops``) of one window;
+   (``utils/roofline.count_flops``) of one window; then the diffusion
+   cell's serving path, ``generate`` on a full-width bf16 DiffGesture
+   over 64 clips of 3 windows with a card generator, its second call
+   replaying each window's graph: 17 fused add and layer norm launches a
+   step and no other kernel of the port;
 4. training: HierarchySystem.train_step of the same hierarchy with
    configs_expressive/hierarchy.yaml (batch 96, bf16, every loss weight),
    one warm-up step and four GAN steps on random batches, then of the
@@ -43,7 +49,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    there is one; B1 forward at B = 1, 8, 16, 96 and 256 with its
    clusters' occupancy and waves; B1's backward kernel and whole backward
    call; B2-B4's device time a launch (profiler) and the epilogue's
-   instructions a pair in their SASS;
+   instructions a pair in their SASS; the fused add and layer norm a
+   launch (profiler; and in a CUDA graph over operands that L2 cannot
+   hold) beside its plain version's add and layer norm and the library
+   layer norm alone;
 6. the training driver: the pinned-memory train loader on the card
    against the host gather; then ``python -m ha2g_torch.cli`` in process
    at full width (configs_expressive/hierarchy.yaml, batch 96, bf16) on
@@ -753,6 +762,185 @@ def _b234_times(N, D=32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The denoiser's fused residual add and layer norm
+# ---------------------------------------------------------------------------
+
+# one denoiser pass of the diffusion cell: 2 x 64 rows x 34 frames of 512
+ADD_NORM_SHAPE = (128, 34, 512)
+ADD_NORM_SETS = 8      # distinct operand sets: 8 x 17.8 MB > the 50 MB L2
+
+
+def _add_norm_inputs(shape, broadcast, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(shape, generator=g)
+    d = torch.randn(shape[-2:] if broadcast else shape, generator=g)
+    weight = 1.0 + 0.2 * torch.randn(shape[-1], generator=g)
+    bias = 0.1 * torch.randn(shape[-1], generator=g)
+    return [t.to("cuda", dtype) for t in (h, d, weight, bias)]
+
+
+def _add_norm_check():
+    """The fused kernel against its plain version at the cell's shape, at
+    a row count that no block of four rows divides, with the positional
+    table broadcast, and in float32: the sum bit for bit, y within the
+    larger of one ulp of its type and 16 float32 ulps at its largest
+    magnitude (tests/test_torch_cuda.py::_add_norm_tol).  Returns {case:
+    y's largest error in that tolerance}."""
+    from ha2g_torch.ops.add_norm import add_layer_norm, add_layer_norm_plain
+    cases = {"cell": (ADD_NORM_SHAPE, False, torch.bfloat16),
+             "odd_rows": ((4349, 512), False, torch.bfloat16),
+             "pos": (ADD_NORM_SHAPE, True, torch.bfloat16),
+             "fp32": (ADD_NORM_SHAPE, False, torch.float32)}
+    out = {}
+    for name, (shape, broadcast, dtype) in cases.items():
+        args = _add_norm_inputs(shape, broadcast, dtype, seed=len(out))
+        with torch.inference_mode():
+            s, y = add_layer_norm(*args, 1e-5)
+            want_s, want_y = add_layer_norm_plain(*args, 1e-5)
+        torch.cuda.synchronize()
+        tol = max(torch.finfo(dtype).eps,
+                  16 * torch.finfo(torch.float32).eps) * 2.0 ** np.floor(
+            np.log2(float(want_y.abs().max())))
+        err = float((y.float() - want_y.float()).abs().max()) / tol
+        _line("add-norm-check", case=name, shape=list(shape), dtype=dtype,
+              sum_equal=torch.equal(s, want_s), y_err_of_tol=f"{err:.3f}")
+        if not torch.equal(s, want_s) or err > 1.0:
+            raise AssertionError(f"add_layer_norm {name}: sum equal "
+                                 f"{torch.equal(s, want_s)}, y off by "
+                                 f"{err} of its tolerance")
+        out[name] = err
+    return out
+
+
+def _graph_ms(fns, reps=10) -> float:
+    """Median device ms of one of ``fns`` (called in turn, 12 rounds) as a
+    CUDA graph replays them, the way the diffusion chain runs: no host
+    launch between kernels (CUDA events around each replay).  The kernels'
+    launch counts grow by the graph's launches at each replay, as the
+    synthesizers' graphs count."""
+    from ha2g_torch import kernels
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    rounds = 12
+    with kernels.captured_launches() as tally, torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    for _ in range(3):
+        graph.replay()
+        kernels.add_launches(tally)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        kernels.add_launches(tally)
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / (rounds * len(fns)))
+    return statistics.median(times)
+
+
+def _diffuse_counts():
+    """The serving path of the diffusion cell: ``make_synthesizer(...)
+    .generate`` on a full-width bf16 DiffGesture (8 blocks of 512, 500
+    steps) over 64 clips of 4.5 s (3 windows), a generator on the card.  A
+    first call captures each window's chain as a CUDA graph (after an
+    op-by-op warm-up); the second call, counted alone, replays it at every
+    window: one fused add and layer norm a norm of the pass (two a block
+    and the final one) a step, no other kernel of the port.  Returns that call's launch counts."""
+    from ha2g_torch.config import Config
+    from ha2g_torch.data.vocab import Vocab
+    from ha2g_torch.synthesis import make_synthesizer
+    from ha2g_torch.train.loop import build_system
+
+    cfg = Config(model="pose_diffusion", dataset="ted_expressive",
+                 pose_dim=126, n_poses=34, n_pre_poses=4,
+                 compute_dtype="bfloat16")
+    system = build_system(cfg, 4, 1, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    synth = make_synthesizer(system, system.state_dict())
+    rng = np.random.default_rng(0)
+    clips, windows = 64, 3
+    audio = (rng.normal(size=(clips, int(4.5 * 16000))) * 0.1).astype(
+        np.float32)
+    call = lambda seed: synth.generate(
+        audio, [[]] * clips, Vocab("words"), np.zeros(clips, np.int64),
+        generator=torch.Generator("cuda").manual_seed(seed))
+    call(1)
+    before, steps = _read_counts(), dict(synth.step_counts)
+    t0 = time.perf_counter()
+    out = call(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in _read_counts().items()}
+    replayed = synth.step_counts["replayed"] - steps["replayed"]
+    want = {**dict.fromkeys(counts, 0),
+            "add_norm": (2 * cfg.block_depth + 1) * cfg.diffusion_steps
+            * windows}
+    ok = (counts == want and np.isfinite(out).all()
+          and replayed == cfg.diffusion_steps * windows
+          and synth.step_counts["eager"] == steps["eager"])
+    _line("diffuse-serving", clips=clips, windows=windows,
+          shape=list(out.shape), seconds=f"{seconds:.3f}",
+          replayed_steps=replayed,
+          add_norm=f"{counts['add_norm']}/{want['add_norm']}", ok=ok)
+    if not ok:
+        raise AssertionError(f"diffusion serving path: counts {counts} "
+                             f"against {want}, {replayed} steps replayed")
+    return counts
+
+
+def _add_norm_times():
+    """At the cell's shape in bf16: the fused kernel's device ms a launch
+    (profiler, operands in L2 as back-to-back calls leave them); ms a
+    launch in a CUDA graph over ``ADD_NORM_SETS`` operand sets, which
+    L2 cannot hold (``cold``), and over one set (``warm``); the same for
+    the plain version (PyTorch's bf16 add, then ``F.layer_norm``) and for
+    the library call alone (``F.layer_norm`` on the sum); the bound: h and
+    d read, h' and y written once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from ha2g_torch.ops.add_norm import add_layer_norm, add_layer_norm_plain
+    sets = [_add_norm_inputs(ADD_NORM_SHAPE, False, torch.bfloat16, seed=i)
+            for i in range(ADD_NORM_SETS)]
+    D = ADD_NORM_SHAPE[-1]
+    with torch.inference_mode():
+        sums = [h + d for h, d, _, _ in sets]
+
+        def fused(a):
+            return lambda: add_layer_norm(*a, 1e-5)
+
+        def plain(a):
+            return lambda: add_layer_norm_plain(*a, 1e-5)
+
+        def library(a, s):
+            return lambda: F.layer_norm(s, (D,), a[2], a[3], 1e-5)
+
+        ms = _kernel_device_ms(fused(sets[0]), "add_layer_norm")
+        out = {"ms": ms}
+        for name, make in (("fused", lambda i: fused(sets[i])),
+                           ("plain", lambda i: plain(sets[i])),
+                           ("library", lambda i: library(sets[i], sums[i]))):
+            out[f"{name}_cold_ms"] = _graph_ms(
+                [make(i) for i in range(ADD_NORM_SETS)])
+            out[f"{name}_warm_ms"] = _graph_ms([make(0)])
+    n_bytes = 4 * sets[0][0].numel() * 2 + 2 * D * 2
+    out["bound_ms"], out["bound_by"] = _bound(n_bytes, 0, torch.bfloat16)
+    _line("add-norm-time", shape=list(ADD_NORM_SHAPE), dtype="bfloat16",
+          bytes=n_bytes, **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                            for k, v in out.items()})
+    return out
+
+
 # SASS opcodes of the epilogue's arithmetic: fp32 ALU and MUFU (sqrt, rcp,
 # exp); the product is HMMA
 EPILOGUE_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FRND",
@@ -1078,13 +1266,15 @@ def _train_batch(cfg, B, seed):
 
 
 def _counters():
-    """The launch counts of every kernel of the train step, and the calls
-    of B1's backward."""
+    """The launch counts of every kernel of the train step and of the
+    denoiser's fused add and layer norm, and the calls of B1's backward."""
+    from ha2g_torch.ops import add_norm as A
     from ha2g_torch.ops import contrastive as C
     from ha2g_torch.ops import gru_kernel as G
     return {"b1": G.gru_recurrence, "b1_backward": G.gru_recurrence_backward,
             "b1_bwd": G.gru_backward_loop, "b2": C.contrastive_fwd,
-            "b3": C.contrastive_bwd_da, "b4": C.contrastive_bwd_db}
+            "b3": C.contrastive_bwd_da, "b4": C.contrastive_bwd_db,
+            "add_norm": A.add_layer_norm}
 
 
 def _set_counts(values):
@@ -1117,7 +1307,8 @@ def _expected_counts(cfg, gan_on):
     diversity cascade, the D phase's fake cascade) and once a D layer a D
     call (D(out) always; D(real), D(fake) in the D phase); its backward
     for the G cascade, D(out) with the GAN term, and both D-phase calls;
-    B2 once and B3, B4 once each for the +/- contrastive terms."""
+    B2 once and B3, B4 once each for the +/- contrastive terms; the
+    hierarchy runs no denoiser, so no fused add and layer norm."""
     cascade = cfg.skeleton.n_levels * cfg.n_layers
     d_layers = 4
     if gan_on:
@@ -1127,7 +1318,7 @@ def _expected_counts(cfg, gan_on):
         fwd = 2 * cascade + d_layers
         bwd = cascade
     return {"b1": fwd, "b1_backward": bwd, "b1_bwd": bwd, "b2": 2, "b3": 2,
-            "b4": 2}
+            "b4": 2, "add_norm": 0}
 
 
 def _train(config, steps):
@@ -2340,7 +2531,7 @@ def _baseline_expected(cfg, gan_on):
     detached by the regulariser, so it takes no backward).  The others
     run one forward and its backward.  No contrastive loss in any."""
     zero = {"b1": 0, "b1_backward": 0, "b1_bwd": 0, "b2": 0, "b3": 0,
-            "b4": 0}
+            "b4": 0, "add_norm": 0}
     if cfg.model != "multimodal_context":
         n = _window_b1(cfg)
         return {**zero, "b1": n, "b1_backward": n, "b1_bwd": n}
@@ -4272,7 +4463,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from ha2g_torch import kernels
-    from ha2g_torch.ops import contrastive, gru_kernel
+    from ha2g_torch.ops import add_norm, contrastive, gru_kernel
 
     # phase 1: device and build
     smi = _smi()
@@ -4283,7 +4474,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    logs = kernels.build([gru_kernel.SOURCE, contrastive.SOURCE])
+    logs = kernels.build([gru_kernel.SOURCE, contrastive.SOURCE,
+                          add_norm.SOURCE])
     _line("build", seconds=f"{time.perf_counter() - t0:.1f}",
           sources=[str(s.relative_to(ROOT)) for s in logs] or "cached")
     for log in logs.values():
@@ -4298,13 +4490,16 @@ def main() -> int:
     bwd_errs = _b1_bwd_check()
     _b1_grad_check()
     b234_errs = _b234_check()
+    add_norm_errs = _add_norm_check()
 
     # phase 3: the serving path
     _reset_counts()
     serving_b1, per_request, e2e, window_flops = _slice()
     serving = {**_read_counts(), "b1": serving_b1}
-    if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4")):
-        raise AssertionError("training kernels launched while serving")
+    if any(serving[k] for k in ("b1_bwd", "b2", "b3", "b4", "add_norm")):
+        raise AssertionError("training or denoiser kernels launched while "
+                             "serving the hierarchy")
+    diffuse = _diffuse_counts()
 
     # phase 4: the training path, each run read on its own
     runs, bare_gan_ms, gan_flops = {}, {}, {}
@@ -4347,6 +4542,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         _b1_backward_times(dtype, T=34, B=256, H=300)
     b234 = {N: _b234_times(N) for N in (3264, 8704)}
+    add_norm_times = _add_norm_times()
     _sass_reckoning()
 
     # phase 6: the training driver (loader, command line, trainer, fp32
@@ -4451,6 +4647,17 @@ def main() -> int:
             "library_ms": None, "call_ms": t["call_ms"],
             "ms_N8704": b234[8704][k]["ms"],
             "bound_ms_N8704": b234[8704][k]["bound_ms"]})
+    t = add_norm_times
+    entries.append({
+        "name": "add_layer_norm", "route": "cuda",
+        "source": "ha2g_torch/csrc/add_layer_norm.cu", "replaces": None,
+        "launches": diffuse["add_norm"],
+        "launches_by_path": {"serving:diffusion": diffuse["add_norm"],
+                             **by_path("add_norm")},
+        "max_err_of_tol": max(add_norm_errs.values()),
+        "ms": t["ms"], "cold_ms": t["fused_cold_ms"],
+        "plain_ms": t["plain_cold_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_cold_ms"]})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ epsilon-prediction loss.
   pre-LN blocks (h += W_o softmax(Q K^T / sqrt(d)) V with Q, K, V from one
   Linear(width, 3 width) on LN(h); h += Linear(GELU(Linear(LN(h))))) -> LN
   -> Linear(pose_dim).  It computes in the compute dtype, layer norm's
-  statistics in float32.
+  statistics in float32; each layer norm and the residual add before it
+  are one ``ops/add_norm.add_layer_norm`` (on the card, one kernel).
 * Guidance: eps_u + s (eps_c - eps_u), the two passes run as one of 2B rows
   (conditioned rows first).
 * Sampler: x_T ~ N(0, I); x_{t-1} = (x_t - beta_t / sqrt(1 - alpha_bar_t)
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from ha2g_torch.models.hierarchy import FEAT_SIZE
 from ha2g_torch.models.multimodal_context import WavEncoder
+from ha2g_torch.ops.add_norm import add_layer_norm
 from ha2g_torch.parallel.mesh import draw_rows
 from ha2g_torch.utils.spans import span
 
@@ -126,26 +128,35 @@ class Denoiser(nn.Module):
         """x (N, L, in) in the compute dtype; ``w`` from ``cast``."""
         with span("ha2g.model.denoiser"):
             N, L, _ = x.shape
-            h = F.linear(x, w["inp.weight"], w["inp.bias"]) + w["pos"]
-            D = h.shape[-1]
+            D = w["pos"].shape[-1]
             H = self.heads
-            for i in range(len(self.blocks)):
+            depth = len(self.blocks)
+            # every layer norm takes the residual add before it: block 0's
+            # norm1 the positional table's, each block's norm2 its
+            # attention's, the next block's norm1 (after the last block the
+            # final norm, whose sum is not kept) its MLP's
+            norms = [f"blocks.{i}.norm1." for i in range(depth)] + ["norm."]
+
+            def add_norm(h, d, norm, keep_sum=True):
+                return add_layer_norm(h, d, w[norm + "weight"],
+                                      w[norm + "bias"], LN_EPS, keep_sum)
+
+            h, a = add_norm(F.linear(x, w["inp.weight"], w["inp.bias"]),
+                            w["pos"], norms[0], depth > 0)
+            for i in range(depth):
                 b = f"blocks.{i}."
-                a = F.layer_norm(h, (D,), w[b + "norm1.weight"],
-                                 w[b + "norm1.bias"], LN_EPS)
                 qkv = F.linear(a, w[b + "qkv.weight"], w[b + "qkv.bias"])
                 q, k, v = qkv.view(N, L, 3, H, D // H).permute(
                     2, 0, 3, 1, 4).unbind(0)
                 a = F.scaled_dot_product_attention(q, k, v)
                 a = a.transpose(1, 2).reshape(N, L, D)
-                h = h + F.linear(a, w[b + "proj.weight"], w[b + "proj.bias"])
-                a = F.layer_norm(h, (D,), w[b + "norm2.weight"],
-                                 w[b + "norm2.bias"], LN_EPS)
+                h, a = add_norm(h, F.linear(a, w[b + "proj.weight"],
+                                            w[b + "proj.bias"]), b + "norm2.")
                 a = F.gelu(F.linear(a, w[b + "fc1.weight"], w[b + "fc1.bias"]))
-                h = h + F.linear(a, w[b + "fc2.weight"], w[b + "fc2.bias"])
-            h = F.layer_norm(h, (D,), w["norm.weight"], w["norm.bias"],
-                             LN_EPS)
-            return F.linear(h, w["out.weight"], w["out.bias"])
+                h, a = add_norm(h, F.linear(a, w[b + "fc2.weight"],
+                                            w[b + "fc2.bias"]),
+                                norms[i + 1], i + 1 < depth)
+            return F.linear(a, w["out.weight"], w["out.bias"])
 
 
 class PoseDiffusion(nn.Module):

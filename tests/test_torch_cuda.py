@@ -1,16 +1,20 @@
-"""Kernels B1-B4 on the card against their plain versions, B1's autograd,
-and the wrappers' routing of CUDA tensors to the kernels.  Marked
+"""Kernels B1-B4 and the denoiser's fused add and layer norm on the card
+against their plain versions, B1's autograd, and the wrappers' routing of
+CUDA tensors to the kernels.  Marked
 ``cuda``: it skips on machines without an NVIDIA GPU, where a CUDA kernel
 cannot run.
 On a GPU machine without JAX:
 ``python -m pytest tests/test_torch_cuda.py --noconftest`` (the suite's
 conftest imports JAX)."""
 
+import math
+
 import pytest
 import torch
 
 from ha2g_torch.ops import contrastive as C
 from ha2g_torch.ops import gru_kernel as K
+from ha2g_torch.ops.add_norm import add_layer_norm, add_layer_norm_plain
 from ha2g_torch.ops.gru_kernel import (MAX_HIDDEN, gru_backward_loop,
                                        gru_backward_loop_plain,
                                        gru_recurrence, gru_recurrence_fn,
@@ -564,7 +568,8 @@ def test_graphed_diffusion_chain_equals_eager_bit_for_bit(cuda):
     window) against the same chain op by op, a generator on the card:
     equal bit for bit and the generators in the same state, at the
     capture's call and at a later one; then ``generate`` over three
-    windows counts every step as replayed."""
+    windows counts every step as replayed, and every pass's layer norms
+    as fused kernels."""
     import numpy as np
 
     from ha2g_torch.config import Config
@@ -581,6 +586,7 @@ def test_graphed_diffusion_chain_equals_eager_bit_for_bit(cuda):
     synth = make_synthesizer(system, system.state_dict())
     rng = np.random.default_rng(0)
     audio = (rng.normal(size=(3, int(4.5 * 16000))) * 0.1).astype(np.float32)
+    before = add_layer_norm.launches
     with torch.inference_mode():
         cond = system.condition(
             torch.zeros(3, 4, 126, device=cuda),
@@ -595,13 +601,162 @@ def test_graphed_diffusion_chain_equals_eager_bit_for_bit(cuda):
             assert torch.equal(graphed.get_state(), eager.get_state())
     assert synth.step_counts == {"eager": 0, "replayed": 2 * 16,
                                  "captured": 16}
+    # one fused add and layer norm a norm: 2 x depth + 1 a pass, one pass
+    # a step; the graph holds one window's, which the warm-up, each replay
+    # and each op-by-op chain launch
+    per_window = (2 * 2 + 1) * 16
+    (graph,) = synth._graphs.values()
+    assert graph.launches == {add_layer_norm: per_window}
+    assert add_layer_norm.launches - before == (1 + 2 + 2) * per_window
+    before = add_layer_norm.launches
     out = synth.generate(audio, [[]] * 3, Vocab("words"),
                          np.zeros(3, np.int64),
                          generator=torch.Generator(cuda).manual_seed(1))
     assert np.isfinite(out).all() and out.shape == (3, 94, 126)
     assert synth.step_counts == {"eager": 0, "replayed": 5 * 16,
                                  "captured": 16}
+    assert add_layer_norm.launches - before == 3 * per_window
     assert len(synth._graphs) == 1
+
+
+def _add_norm_tol(y) -> float:
+    """y's tolerance: the kernel sums a row's statistics in another order
+    than PyTorch's Welford loop, and rsqrtf rounds otherwise, which moves y
+    before its rounding by up to ~10 float32 ulps of its scale; rounded to
+    bf16 that is at most one bf16 ulp.  So: the larger of one ulp of y's
+    type and 16 float32 ulps, at y's largest magnitude."""
+    eps = max(torch.finfo(y.dtype).eps, 16 * torch.finfo(torch.float32).eps)
+    return eps * 2.0 ** math.floor(math.log2(float(y.abs().max())))
+
+
+# the denoiser's pass at the cell's shape (2 x 64 rows x 34 frames of 512),
+# a row count that no block of four rows divides, the positional table
+# broadcast over the rows, float32, and the narrow widths of the tests'
+# denoisers (one 16-byte piece a lane, lanes idle)
+ADD_NORM_SHAPES = [((128, 34, 512), False, torch.bfloat16),
+                   ((4349, 512), False, torch.bfloat16),
+                   ((128, 34, 512), True, torch.bfloat16),
+                   ((128, 34, 512), False, torch.float32),
+                   ((6, 34, 64), True, torch.bfloat16),
+                   ((5, 7, 32), False, torch.float32)]
+
+
+def _add_norm_args(shape, broadcast, dtype, device):
+    g = torch.Generator().manual_seed(len(shape) + shape[-1])
+    h = torch.randn(shape, generator=g)
+    d = torch.randn(shape[-2:] if broadcast else shape, generator=g)
+    width = shape[-1]
+    weight = 1.0 + 0.2 * torch.randn(width, generator=g)
+    bias = 0.1 * torch.randn(width, generator=g)
+    return [t.to(device, dtype) for t in (h, d, weight, bias)]
+
+
+@pytest.mark.parametrize("shape,broadcast,dtype", ADD_NORM_SHAPES)
+def test_add_layer_norm_kernel_matches_plain(cuda, shape, broadcast, dtype):
+    """The fused kernel against its plain version (PyTorch's add and layer
+    norm) on the card: the sum bit for bit, y within ``_add_norm_tol`` (one
+    bf16 ulp at its scale); the call that keeps no sum gives the same y,
+    and each call is one launch."""
+    h, d, weight, bias = _add_norm_args(shape, broadcast, dtype, cuda)
+    before = add_layer_norm.launches
+    with torch.inference_mode():
+        s, y = add_layer_norm(h, d, weight, bias, 1e-5)
+        _, last = add_layer_norm(h, d, weight, bias, 1e-5, keep_sum=False)
+        want_s, want_y = add_layer_norm_plain(h, d, weight, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert add_layer_norm.launches - before == 2
+    assert torch.equal(s, want_s)
+    assert torch.equal(last, y)
+    assert (y.float() - want_y.float()).abs().max() <= _add_norm_tol(want_y)
+
+
+@pytest.mark.parametrize("shape,broadcast,dtype", ADD_NORM_SHAPES[2:4])
+def test_add_layer_norm_kernel_gradients_are_the_two_ops(cuda, shape,
+                                                         broadcast, dtype):
+    """With autograd recording, the kernel still runs the forward (one
+    launch a call, the same y as under inference mode), and the gradients
+    of (h, d, weight, bias) equal autograd's through the add and
+    ``F.layer_norm`` bit for bit, with the sum's gradient and without it:
+    the backward recomputes the norm from the kernel's sum, which is the
+    plain add's bit for bit."""
+    args = [t.requires_grad_() for t in
+            _add_norm_args(shape, broadcast, dtype, cuda)]
+    with torch.inference_mode():
+        _, y_inf = add_layer_norm(*args, 1e-5)
+    g = torch.Generator().manual_seed(7)
+    gs, gy = (torch.randn(shape, generator=g).to(cuda, dtype)
+              for _ in range(2))
+    want_s, want_y = add_layer_norm_plain(*args, 1e-5)
+    before = add_layer_norm.launches
+    s, y = add_layer_norm(*args, 1e-5)
+    _, last = add_layer_norm(*args, 1e-5, keep_sum=False)
+    assert add_layer_norm.launches - before == 2
+    assert torch.equal(s, want_s) and torch.equal(y, y_inf)
+    for outs, plain, grads in (((s, y), (want_s, want_y), (gs, gy)),
+                               ((last,), (want_y,), (gy,))):
+        got = torch.autograd.grad(outs, args, grads, retain_graph=True)
+        want = torch.autograd.grad(plain, args, grads, retain_graph=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    assert add_layer_norm.launches - before == 2
+
+
+def test_add_layer_norm_kernel_runs_on_the_tensors_card(cuda):
+    """The last card's tensors while the first is current: the launch goes
+    to the tensors' card and stream (on a one-card machine, the same
+    card)."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    args = _add_norm_args((128, 34, 512), True, torch.bfloat16, last)
+    with torch.cuda.device(0), torch.inference_mode():
+        s, y = add_layer_norm(*args, 1e-5)
+        want_s, want_y = add_layer_norm_plain(*args, 1e-5)
+    torch.cuda.synchronize(last)
+    assert s.device == y.device == last
+    assert torch.equal(s, want_s)
+    assert (y.float() - want_y.float()).abs().max() <= _add_norm_tol(want_y)
+
+
+def test_add_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
+    w = torch.ones(12, device=cuda)
+    h = torch.randn(4, 12, device=cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="16-byte"):
+            add_layer_norm(h[:, :10], h[:, :10], w[:10], w[:10], 1e-5)
+        with pytest.raises(ValueError, match="16-byte pieces"):
+            add_layer_norm(h[:, :6].contiguous(), h[:, :6].contiguous(),
+                           w[:6], w[:6], 1e-5)
+        with pytest.raises(ValueError, match="one type"):
+            add_layer_norm(h, h.bfloat16(), w, w, 1e-5)
+
+
+def test_denoiser_takes_the_kernel_with_and_without_autograd(cuda,
+                                                             monkeypatch):
+    """A narrow bf16 denoiser on the card: its pass is 2 x depth + 1 fused
+    launches under inference mode and with autograd recording; its loss's
+    gradients reach every parameter and are those of the plain ops' pass
+    within bf16 rounding (y may differ from the plain norm's in its last
+    bit)."""
+    from ha2g_torch.models import diffusion
+    from ha2g_torch.models.diffusion import Denoiser
+
+    torch.manual_seed(0)
+    net = Denoiser(126, 159, 34, 64, 2, 2, 4).to(cuda)
+    x = torch.randn(6, 34, 126 + 3 + 159, device=cuda).bfloat16()
+    before = add_layer_norm.launches
+    with torch.inference_mode():
+        net(x, net.cast(torch.bfloat16))
+    assert add_layer_norm.launches - before == 2 * 2 + 1
+    grads = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(diffusion, "add_layer_norm",
+                                add_layer_norm_plain)
+        net.zero_grad()
+        out = net(x, net.cast(torch.bfloat16))
+        out.float().square().mean().backward()
+        grads.append([p.grad.float() for p in net.parameters()])
+        assert add_layer_norm.launches - before == 2 * (2 * 2 + 1)
+    for got, want in zip(*grads, strict=True):
+        assert (got - want).norm() <= 2e-2 * want.norm()
 
 
 def test_cli_train_on_nccl_ranks_matches_one_process(cuda, tmp_path):

@@ -15,11 +15,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import tests.torch_cpu  # noqa: F401  (one torch thread)
 from ha2g_torch.config import Config
 from ha2g_torch.data.vocab import Vocab
 from ha2g_torch.models.diffusion import variance_schedule
+from ha2g_torch.ops.add_norm import (add_layer_norm, add_layer_norm_backward,
+                                     add_layer_norm_plain)
 from ha2g_torch.synthesis import DiffusionSynthesizer, make_synthesizer
 from ha2g_torch.train.loop import build_system
 
@@ -130,6 +133,58 @@ def test_guided_step_is_two_passes(case):
         e_u = model.denoiser(ref._inputs(x, temb, null, ref.FLOAT32))
     assert _rel(cond, rcond) < REL
     assert _rel(got, e_u + 1.5 * (e_c - e_u)) < REL
+
+
+def _add_norm_args(dtype, broadcast):
+    """A (rows, L, width) stream, a tensor of its shape or the (L, width)
+    positional table, and a norm's weight and bias."""
+    g = torch.Generator().manual_seed(int(broadcast))
+    h = torch.randn(3, 5, 16, generator=g).to(dtype)
+    d = torch.randn(h.shape[1:] if broadcast else h.shape,
+                    generator=g).to(dtype)
+    weight = (1.0 + 0.2 * torch.randn(16, generator=g)).to(dtype)
+    bias = (0.1 * torch.randn(16, generator=g)).to(dtype)
+    return h, d, weight, bias
+
+
+ADD_NORM_CASES = pytest.mark.parametrize(
+    "dtype,broadcast", [(dt, b) for dt in (torch.float32, torch.bfloat16)
+                        for b in (False, True)])
+
+
+@ADD_NORM_CASES
+def test_add_layer_norm_off_the_card_is_the_two_ops(dtype, broadcast):
+    """``add_layer_norm`` on CPU tensors against the add and
+    ``F.layer_norm`` it replaced, bit for bit; the last norm's call (no
+    sum kept) gives the same y."""
+    h, d, weight, bias = _add_norm_args(dtype, broadcast)
+    s, y = add_layer_norm(h, d, weight, bias, 1e-5)
+    want = h + d
+    assert s.dtype == y.dtype == dtype
+    assert torch.equal(s, want)
+    assert torch.equal(y, F.layer_norm(want, (16,), weight, bias, 1e-5))
+    none, last = add_layer_norm(h, d, weight, bias, 1e-5, keep_sum=False)
+    assert none is None and torch.equal(last, y)
+
+
+@ADD_NORM_CASES
+def test_add_layer_norm_backward_is_the_two_ops(dtype, broadcast):
+    """``add_layer_norm_backward``, the card's autograd node, against
+    autograd through the add and ``F.layer_norm``, bit for bit: with the
+    sum's own gradient (a norm inside the stack) and without it (the last
+    norm's)."""
+    args = [t.requires_grad_() for t in _add_norm_args(dtype, broadcast)]
+    h, d, weight, bias = args
+    s, y = add_layer_norm_plain(*args, 1e-5)
+    g = torch.Generator().manual_seed(7)
+    gs, gy = (torch.randn(s.shape, generator=g).to(dtype) for _ in range(2))
+    for outs, grads in (((s, y), (gs, gy)), ((y,), (gy,))):
+        want = torch.autograd.grad(outs, args, grads, retain_graph=True)
+        got = add_layer_norm_backward(s.detach(), weight, bias, 1e-5,
+                                      d.shape, grads[0] if len(outs) == 2
+                                      else None, gy)
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        assert [t.shape for t in got] == [t.shape for t in args]
 
 
 def test_schedule_closed_form():
