@@ -9,11 +9,14 @@ that first use a kernel together build it once; a build writes its
 library to a temporary file named by process and thread before moving it
 into place.
 
-The wrappers count their kernels' executions in a ``launches`` attribute
-through ``count_launch``: an eager launch counts one; a launch recorded
-while the thread captures a CUDA graph (inside ``captured_launches``)
-counts nothing, and goes into the capture's tally, which ``add_launches``
-adds again at each replay of the graph.
+The ops modules' wrappers route their tensors with ``on_card`` (the plain
+version for CPU tensors, the kernel for contiguous tensors on one CUDA
+device) and start their kernels with ``launch``, which counts each
+execution in the wrapper's ``launches`` attribute through ``count_launch``:
+an eager launch counts one; a launch recorded while the thread captures a
+CUDA graph (inside ``captured_launches``) counts nothing, and goes into the
+capture's tally, which ``add_launches`` adds again at each replay of the
+graph.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -99,6 +104,32 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(source)))
             _loaded[source] = lib
         return lib
+
+
+def on_card(name: str, tensors) -> bool:
+    """False for all-CPU tensors (the plain version); True for contiguous
+    tensors on one CUDA device (the kernel); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs all tensors on one CUDA device or "
+                         f"all on the CPU, got {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return True
+
+
+def launch(wrapper, fn, device, *args) -> None:
+    """One kernel launch by ``wrapper``: the library function ``fn(*args,
+    stream)`` on ``device``, handed that device's current stream; raises
+    on a nonzero CUDA error, else counts the launch (``count_launch``)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    count_launch(wrapper)
 
 
 def count_launch(wrapper) -> None:

@@ -9,18 +9,19 @@ the rows as PyTorch's add broadcasts it).  With ``keep_sum=False`` h' is
 not written and comes back as None (the denoiser's last norm).
 
 CUDA tensors run the hand-written kernel of ``csrc/add_layer_norm.cu``
-and count the launch in ``add_layer_norm.launches``
-(``kernels.count_launch``); the kernel takes float32 or bfloat16 tensors
-on one device, contiguous and 16-byte aligned, with rows a multiple of 16
-bytes and at most ``MAX_PIECES`` 16-byte pieces, and raises on anything
-else.  Where autograd records (the training step's epsilon loss), the
-kernel's call is one ``_AddLayerNorm`` node: it keeps h' (written even
-when not returned), and its backward is ``add_layer_norm_backward``, the
-add's and the layer norm's own backward ops, the norm's statistics
-recomputed from h'.  CPU tensors run ``add_layer_norm_plain``: the add,
-then ``F.layer_norm``, the denoiser's two ops as they were.  The kernel's
-h' is the plain version's bit for bit; its y may differ in the last bit,
-as the statistics are summed in another order.
+and count the launch in ``add_layer_norm.launches`` (``kernels.launch``);
+the kernel takes float32 or bfloat16 tensors on one device
+(``kernels.on_card``), contiguous and 16-byte aligned, with rows a
+multiple of 16 bytes and at most ``MAX_PIECES`` 16-byte pieces, and raises
+on anything else.  Where autograd records (the training step's epsilon
+loss), the kernel's call is one ``_AddLayerNorm`` node: it keeps h'
+(written even when not returned), and its backward is
+``add_layer_norm_backward``, the add's and the layer norm's own backward
+ops, the norm's statistics recomputed from h'.  CPU tensors run
+``add_layer_norm_plain``: the add, then ``F.layer_norm``, the denoiser's
+two ops as they were.  The kernel's h' is the plain version's bit for bit;
+its y may differ in the last bit, as the statistics are summed in another
+order.
 """
 
 from __future__ import annotations
@@ -61,10 +62,7 @@ def _kernel_args(h, d, weight, bias) -> tuple[int, int, int]:
     """(rows, d_rows, width) of a kernel call; raises on what the kernel
     does not take."""
     tensors = (h, d, weight, bias)
-    dev, dtype = h.device, h.dtype
-    if not (d.device == dev and weight.device == dev and bias.device == dev):
-        raise ValueError("add_layer_norm needs all tensors on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
+    dtype = h.dtype
     if dtype not in DTYPES or not (d.dtype == dtype and weight.dtype == dtype
                                    and bias.dtype == dtype):
         raise ValueError("add_layer_norm takes float32 or bfloat16 tensors "
@@ -78,12 +76,9 @@ def _kernel_args(h, d, weight, bias) -> tuple[int, int, int]:
         raise ValueError("add_layer_norm needs d of h's shape or its trailing "
                          "shape and (width,) weight and bias, got "
                          f"{[tuple(t.shape) for t in tensors]}")
-    if not (h.is_contiguous() and d.is_contiguous() and weight.is_contiguous()
-            and bias.is_contiguous()) or (
-            h.data_ptr() | d.data_ptr() | weight.data_ptr()
+    if (h.data_ptr() | d.data_ptr() | weight.data_ptr()
             | bias.data_ptr()) % 16:
-        raise ValueError("add_layer_norm needs contiguous, 16-byte aligned "
-                         "tensors")
+        raise ValueError("add_layer_norm needs 16-byte aligned tensors")
     pieces, rem = divmod(width * h.element_size(), 16)
     if rem or not 0 < pieces <= MAX_PIECES:
         raise ValueError(f"add_layer_norm takes rows of 16 to {16 * MAX_PIECES}"
@@ -108,20 +103,15 @@ def add_layer_norm_backward(s, weight, bias, eps: float, d_shape, gs, gy):
     return g, g.sum_to_size(d_shape), gw, gb
 
 
-def _launch(h, d, weight, bias, eps: float, keep_sum: bool):
+def _run_kernel(h, d, weight, bias, eps: float, keep_sum: bool):
     rows, d_rows, width = _kernel_args(h, d, weight, bias)
     s = torch.empty_like(h) if keep_sum else None
     y = torch.empty_like(h)
-    with torch.cuda.device(h.device):
-        err = _lib().ha2g_add_layer_norm(
-            DTYPES[h.dtype], h.data_ptr(), d.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), None if s is None else s.data_ptr(),
-            y.data_ptr(), rows, d_rows, width, eps,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"add_layer_norm kernel launch failed: CUDA error "
-                           f"{err}")
-    kernels.count_launch(add_layer_norm)
+    kernels.launch(add_layer_norm, _lib().ha2g_add_layer_norm, h.device,
+                   DTYPES[h.dtype], h.data_ptr(), d.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(),
+                   None if s is None else s.data_ptr(), y.data_ptr(), rows,
+                   d_rows, width, eps)
     return s, y
 
 
@@ -130,7 +120,7 @@ class _AddLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, d, weight, bias, eps):
-        s, y = _launch(h, d, weight, bias, eps, keep_sum=True)
+        s, y = _run_kernel(h, d, weight, bias, eps, keep_sum=True)
         ctx.save_for_backward(s, weight, bias)
         ctx.eps, ctx.d_shape = eps, d.shape
         ctx.set_materialize_grads(False)
@@ -148,13 +138,13 @@ class _AddLayerNorm(torch.autograd.Function):
 
 def add_layer_norm(h, d, weight, bias, eps: float, keep_sum: bool = True):
     """(h + d or None, layer_norm(h + d)): see the module doc."""
-    if h.device.type != "cuda":
+    if not kernels.on_card("add_layer_norm", (h, d, weight, bias)):
         return add_layer_norm_plain(h, d, weight, bias, eps, keep_sum)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h, d, weight, bias)):
         s, y = _AddLayerNorm.apply(h, d, weight, bias, eps)
         return (s if keep_sum else None), y
-    return _launch(h, d, weight, bias, eps, keep_sum)
+    return _run_kernel(h, d, weight, bias, eps, keep_sum)
 
 
 add_layer_norm.launches = 0

@@ -19,10 +19,11 @@ kernel a per-stream buffer of arrival counters that the kernels leave
 zeroed (see the source's header).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
-its ``launches`` attribute (``kernels.count_launch``); for CPU tensors it
-runs its plain PyTorch version (``*_plain``), which materialises the
-(N, N) logits, and counts nothing.  A CUDA tensor reaches the kernel or raises.  Every N is served
-(the kernels mask the ragged edge); D is at most ``MAX_DIM``.
+its ``launches`` attribute (``kernels.launch``); for CPU tensors it runs
+its plain PyTorch version (``*_plain``), which materialises the (N, N)
+logits, and counts nothing.  A CUDA tensor reaches the kernel or raises.
+Every N is served (the kernels mask the ragged edge); D is at most
+``MAX_DIM``.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     """The arrival counters of one stream, n int32 zeros at least.  The
     kernels leave them zeroed, so one buffer serves every call that the
     stream orders after it."""
-    key = (device.index, _stream_of(device))
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
@@ -106,20 +107,9 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _on_card(name: str, *tensors) -> bool:
-    """False for all-CPU tensors (plain version); True for contiguous
-    float32 tensors on one CUDA device (kernel); raises otherwise."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name} needs all tensors on one CUDA device or "
-                         f"all on the CPU, got {devices}")
+def _float32(name: str, tensors) -> None:
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"{name} takes float32 tensors")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-    return True
 
 
 def _check(a, b) -> tuple[int, int]:
@@ -131,15 +121,6 @@ def _check(a, b) -> tuple[int, int]:
         raise ValueError(f"the contrastive kernels take 0 < D <= {MAX_DIM} "
                          f"and N > 0, got N={N} D={D}")
     return N, D
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _stream_of(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _rows_for_kernel(*tensors):
@@ -210,8 +191,9 @@ def contrastive_fwd(a, b):
     """B2: (logz, diag), each (N,) float32."""
     N, D = _check(a, b)
     with kernel_call(fwd_flops(N, D)):
-        if not _on_card("contrastive_fwd", a, b):
+        if not kernels.on_card("contrastive_fwd", (a, b)):
             return contrastive_fwd_plain(a, b)
+        _float32("contrastive_fwd", (a, b))
         dev = a.device
         a, b = _rows_for_kernel(a, b)
         D4 = a.shape[1]
@@ -219,14 +201,11 @@ def contrastive_fwd(a, b):
         logz = torch.empty(N, dtype=torch.float32, device=dev)
         diag = torch.empty_like(logz)
         part = torch.empty(3 * S * N, dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            counters = _counters(dev, -(-N // TILE))
-            err = _lib().ha2g_contrastive_fwd(
-                a.data_ptr(), b.data_ptr(), logz.data_ptr(), diag.data_ptr(),
-                part.data_ptr(), counters.data_ptr(), N, D4, S,
-                _stream_of(dev))
-    _raise_on(err, "contrastive_fwd")
-    kernels.count_launch(contrastive_fwd)
+        counters = _counters(dev, -(-N // TILE))
+        kernels.launch(contrastive_fwd, _lib().ha2g_contrastive_fwd, dev,
+                       a.data_ptr(), b.data_ptr(), logz.data_ptr(),
+                       diag.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                       N, D4, S)
     return logz, diag
 
 
@@ -238,22 +217,21 @@ def _bwd(wrapper, which, a, b, logz, g_over_n, plain):
                          f"value, got {tuple(logz.shape)} and "
                          f"{tuple(g_over_n.shape)}")
     with kernel_call(bwd_flops(N, D)):
-        if not _on_card(name, a, b, logz, g_over_n):
+        tensors = (a, b, logz, g_over_n)
+        if not kernels.on_card(name, tensors):
             return plain(a, b, logz, g_over_n.reshape(()))
+        _float32(name, tensors)
         dev = a.device
         a, b = _rows_for_kernel(a, b)
         D4 = a.shape[1]
         S = splits(which, N, D4, dev.index)
         out = torch.empty((N, D4), dtype=torch.float32, device=dev)
         part = torch.empty((S, N, D4), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            counters = _counters(dev, -(-N // TILE) * -(-D4 // FEATURE_CHUNK))
-            err = getattr(_lib(), f"ha2g_{name}")(
-                a.data_ptr(), b.data_ptr(), logz.data_ptr(),
-                g_over_n.data_ptr(), out.data_ptr(), part.data_ptr(),
-                counters.data_ptr(), N, D4, S, _stream_of(dev))
-    _raise_on(err, name)
-    kernels.count_launch(wrapper)
+        counters = _counters(dev, -(-N // TILE) * -(-D4 // FEATURE_CHUNK))
+        kernels.launch(wrapper, getattr(_lib(), f"ha2g_{name}"), dev,
+                       a.data_ptr(), b.data_ptr(), logz.data_ptr(),
+                       g_over_n.data_ptr(), out.data_ptr(), part.data_ptr(),
+                       counters.data_ptr(), N, D4, S)
     return out[:, :D] if D4 != D else out
 
 

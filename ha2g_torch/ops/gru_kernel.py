@@ -7,7 +7,7 @@ and backward.
 PyTorch version ``gru_recurrence_plain`` on CPU tensors.  A CUDA tensor
 either reaches the kernel or raises.  ``gru_recurrence.launches`` counts
 the kernel's executions, a CUDA graph's replays included
-(``kernels.count_launch``).
+(``kernels.launch``).
 
 Layout (same as the TPU kernel): xp (T, 2, B, 3H) input projections with
 direction 1 already time-reversed, h0 (2, B, H), w_hh (2, H, 3H),
@@ -205,27 +205,6 @@ def _check(xp, h0, w_hh, b_hh) -> tuple[int, int, int]:
     return T, B, H
 
 
-def _on_cuda(name: str, tensors) -> bool:
-    """False for all-CPU tensors (the plain version); True for contiguous
-    tensors on one CUDA device; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name} needs all tensors on one CUDA device or "
-                         f"all on the CPU, got {devices}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-    return True
-
-
-def _launch(name: str, fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def gru_recurrence_plain(xp, h0, w_hh, b_hh) -> torch.Tensor:
     """Plain PyTorch version: the scan of pallas_gru.py::_scan_forward with
     the kernel's precision (fp32 gates, carry rounded to xp.dtype)."""
@@ -264,17 +243,16 @@ def gru_recurrence(xp, h0, w_hh, b_hh) -> torch.Tensor:
     """The recurrence of one bidirectional GRU layer (see module doc)."""
     T, B, H = _check(xp, h0, w_hh, b_hh)
     with kernel_call(forward_flops(T, B, H)):
-        if not _on_cuda("gru_recurrence", (xp, h0, w_hh, b_hh)):
+        if not kernels.on_card("gru_recurrence", (xp, h0, w_hh, b_hh)):
             return gru_recurrence_plain(xp, h0, w_hh, b_hh)
         if H > MAX_HIDDEN:
             raise ValueError(f"hidden size {H} exceeds the kernel's "
                              f"{MAX_HIDDEN}")
         out = torch.empty((T, 2, B, H), dtype=xp.dtype, device=xp.device)
-        _launch("gru_recurrence", _lib().ha2g_gru_recurrence, xp.device,
-                xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
-                b_hh.data_ptr(), out.data_ptr(), T, B, H,
-                _DTYPE_CODES[xp.dtype])
-    kernels.count_launch(gru_recurrence)
+        kernels.launch(gru_recurrence, _lib().ha2g_gru_recurrence, xp.device,
+                       xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+                       b_hh.data_ptr(), out.data_ptr(), T, B, H,
+                       _DTYPE_CODES[xp.dtype])
     return out
 
 
@@ -331,7 +309,7 @@ def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
         raise ValueError(f"unsupported dtype {xp.dtype}")
     tensors = (xp, hh, h_prev, w_hh, d_outs)
     with kernel_call(backward_loop_flops(T, B, H)):
-        if not _on_cuda("gru_backward_loop", tensors):
+        if not kernels.on_card("gru_backward_loop", tensors):
             return gru_backward_loop_plain(*tensors)
         if H > MAX_HIDDEN:
             raise ValueError(f"hidden size {H} exceeds the kernel's "
@@ -346,10 +324,10 @@ def gru_backward_loop(xp, hh, h_prev, w_hh, d_outs):
                            device=xp.device)
         d_gh = torch.empty_like(d_gx)
         d_h0 = torch.empty((2, B, H), dtype=torch.float32, device=xp.device)
-        _launch("gru_backward_loop", _lib().ha2g_gru_backward, xp.device,
-                *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
-                T, B, H, _DTYPE_CODES[xp.dtype])
-    kernels.count_launch(gru_backward_loop)
+        kernels.launch(gru_backward_loop, _lib().ha2g_gru_backward,
+                       xp.device,
+                       *(t.data_ptr() for t in (*tensors, d_gx, d_gh, d_h0)),
+                       T, B, H, _DTYPE_CODES[xp.dtype])
     return d_gx, d_gh, d_h0
 
 

@@ -119,7 +119,7 @@ def _fwd_from_s(s):
 
 
 # the card's aligned-row tolerance on logz and diag at sigma = 0.1
-# (chip_smoke.py B234_ALIGNED_RTOL): 2x the fp32 product's error
+# (tests/test_torch_cuda.py ALIGNED_TOL): 2x the fp32 product's error
 ALIGNED_RTOL = 1e-4
 
 

@@ -36,16 +36,26 @@ def cuda():
 
 # the cluster split: ragged last slices (300 = 7 * 38 + 34, 45), one row
 # group (B <= 16) and several (96, 97: a ragged last group), FFMA rows
-# 1 / 4 / 8 and the bf16 tensor-core path at 16 rows; the GAN baselines'
-# batch 128 (16 forward clusters) at the multimodal generator's H = 300
-# and its discriminator's H = 64 over 28 steps; the Expressive step's 48
-# rows a rank on two data-parallel ranks; the Gesture step's batch 256
-# (bf16: the backward's 32-row clusters from batch 113 on), and 113 and
-# 200, whose last 32-row group is ragged (17 and 8 rows)
-SHAPES = [(7, 3, 48), (34, 1, 300), (34, 8, 300), (34, 96, 300),
-          (34, 97, 300), (11, 5, 200), (6, 16, 45), (34, 128, 300),
-          (28, 128, 64), (34, 48, 300), (34, 256, 300), (34, 113, 300),
-          (34, 200, 300)]
+# 1 / 4 / 8 and the bf16 tensor-core path at 16 rows; the service's
+# buckets 1 / 4 / 8 / 16 at H = 300 and the seq2seq encoder's H = 200 over
+# word sequences of 32 at 1 / 4 / 8; the GAN baselines' batch 128 (16
+# forward clusters) at the multimodal generator's H = 300 and its
+# discriminator's H = 64 over 28 steps, the seq2seq encoder's H = 200 and
+# sequences as short as 17 and 2 steps; the hierarchy's discriminator
+# (28 steps, H = 64) at the Expressive step's batch 96; the Expressive
+# step's 48 rows a rank on two data-parallel ranks; the Gesture step's
+# batch 256 (bf16: the backward's 32-row clusters from batch 113 on), and
+# 113 and 200, whose last 32-row group is ragged (17 and 8 rows); the
+# evaluations of chip_smoke.py's built clips (29 rows) and of its joint
+# embedding (113); ``cli doctor``'s step (batch 2, H = 16, its
+# discriminator's H = 64)
+SHAPES = [(7, 3, 48), (34, 1, 300), (34, 4, 300), (34, 8, 300),
+          (34, 16, 300), (34, 96, 300), (34, 97, 300), (11, 5, 200),
+          (6, 16, 45), (32, 1, 200), (32, 4, 200), (32, 8, 200),
+          (34, 128, 300), (28, 128, 64), (32, 128, 200), (17, 128, 200),
+          (2, 128, 200), (28, 96, 64), (34, 48, 300), (34, 256, 300),
+          (34, 113, 300), (34, 200, 300), (34, 29, 300), (34, 2, 16),
+          (28, 2, 64)]
 
 
 def _b1_args(T, B, H, dtype, device, seed=0):
@@ -149,8 +159,15 @@ def test_kernel_rejects_non_contiguous(cuda):
         gru_recurrence(xp, h0, w, b)
 
 
+# the train steps' shapes: the hierarchy's generator and discriminator at
+# batch 96, the Gesture step's 256, the baselines' batch 128 (the
+# multimodal generator and discriminator, the seq2seq encoder's H = 200
+# at 32, 17 and 2 steps)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,B,H", [(34, 6, 64), (34, 96, 300)])
+@pytest.mark.parametrize("T,B,H", [(34, 6, 64), (34, 96, 300), (34, 96, 64),
+                                   (34, 128, 300), (28, 128, 64),
+                                   (32, 128, 200), (17, 128, 200),
+                                   (2, 128, 200), (34, 256, 300)])
 def test_kernel_autograd_matches_plain_autograd(cuda, dtype, T, B, H):
     """Kernel forward + kernel backward against autograd through the
     plain version (relative L2 per gradient; bf16: the plain graph rounds
@@ -181,16 +198,23 @@ def _aligned(N, D, sigma, seed):
     return a, torch.nn.functional.normalize(b, dim=1)
 
 
-# aligned rows against float64 (chip_smoke.py B234_ALIGNED_*): logz and
-# diag relative entry by entry, dA and dB relative to their largest entry;
-# 2x an fp32 product's error, far below a single TF32 product's
+# aligned rows b = normalize(a + sigma n / sqrt(D)) against float64,
+# keyed by sigma: rows pulled together as a trained contrastive loss sees
+# them (s_ii ~ 0.96 / 0.995), where the loss is ill-conditioned.  logz and
+# diag relative entry by entry, dA and dB relative to their largest entry:
+# 2x the error of an fp32 product (4.9e-6 / 4.6e-5 and 9.9e-6 / 6.6e-5 on
+# an H100), a single TF32 product more than 100x off at 0.1
 ALIGNED_TOL = {0.3: (1e-5, 2e-5), 0.1: (1e-4, 1.5e-4)}
 
 
-@pytest.mark.parametrize("N,D,sigma", [(3264, 32, None), (1000, 32, None),
-                                       (1000, 128, None), (97, 40, None),
+# the Expressive step's N = 96 * 34, TED Gesture's 256 * 34, a ragged N,
+# D = 128, and ``cli doctor``'s 2 * 34
+@pytest.mark.parametrize("N,D,sigma", [(3264, 32, None), (8704, 32, None),
+                                       (1000, 32, None), (1000, 128, None),
+                                       (97, 40, None), (68, 32, None),
                                        (3264, 32, 0.3), (3264, 32, 0.1),
-                                       (1000, 32, 0.3), (1000, 32, 0.1)])
+                                       (1000, 32, 0.3), (1000, 32, 0.1),
+                                       (68, 32, 0.3), (68, 32, 0.1)])
 def test_contrastive_kernels_match_plain(cuda, N, D, sigma):
     """B2-B4 on random unit rows, ragged N included, against their plain
     versions (sums of N terms in another order); on aligned rows against
@@ -268,7 +292,10 @@ def test_flash_contrastive_gradient_on_the_card(cuda):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-def test_pinned_loader_matches_host_gather(cuda):
+# TED Gesture's pose at batch 32; TED Expressive's at its step's batch 96
+@pytest.mark.parametrize("n,B,pose,seed,busy_n", [(300, 32, 27, 1, 2048),
+                                                  (1000, 96, 126, 3, 4096)])
+def test_pinned_loader_matches_host_gather(cuda, n, B, pose, seed, busy_n):
     """The train loader on the card (pinned buffers, non-blocking copies
     queued behind other work) gives the host gather's batches for a seed,
     over two epochs: no pinned buffer is refilled before its copy is
@@ -277,26 +304,25 @@ def test_pinned_loader_matches_host_gather(cuda):
     from ha2g_torch.data.dataset import WindowedSamples
     from ha2g_torch.data.loader import BatchLoader
     rng = np.random.default_rng(0)
-    n = 300
     z = np.zeros
     samples = WindowedSamples(
         text=rng.integers(0, 50, (n, 34)).astype(np.int32),
         word_seq=z((n, 2), np.int32), word_lengths=z(n, np.int32),
         pose=z((n, 34, 3), np.float32),
-        target=rng.normal(size=(n, 34, 27)).astype(np.float32),
+        target=rng.normal(size=(n, 34, pose)).astype(np.float32),
         audio=z((n, 2), np.float32),
         spec=rng.normal(size=(n, 128, 70)).astype(np.float32),
         vids=np.arange(n, dtype=np.int32))
     keys = ("text", "spec", "target", "vids")
-    host = BatchLoader(samples, 32, keys=keys, seed=1)
-    card = BatchLoader(samples, 32, keys=keys, seed=1, device=cuda)
-    busy = torch.randn((2048, 2048), device=cuda)
+    host = BatchLoader(samples, B, keys=keys, seed=seed)
+    card = BatchLoader(samples, B, keys=keys, seed=seed, device=cuda)
+    busy = torch.randn((busy_n, busy_n), device=cuda)
     for _ in range(2):
         got = []
         for batch in card:
             got.append(batch)
             for _ in range(4):
-                busy = busy @ busy.T / 2048.0
+                busy = busy @ busy.T / busy_n
         torch.cuda.synchronize()
         want = list(host)
         assert len(got) == len(want) == len(host)
@@ -718,9 +744,12 @@ def test_add_layer_norm_kernel_runs_on_the_tensors_card(cuda):
 def test_add_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
     w = torch.ones(12, device=cuda)
     h = torch.randn(4, 12, device=cuda)
+    off = torch.randn(4 * 12 + 1, device=cuda)[1:].view(4, 12)
     with torch.inference_mode():
-        with pytest.raises(ValueError, match="16-byte"):
+        with pytest.raises(ValueError, match="contiguous"):
             add_layer_norm(h[:, :10], h[:, :10], w[:10], w[:10], 1e-5)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            add_layer_norm(off, off, w, w, 1e-5)
         with pytest.raises(ValueError, match="16-byte pieces"):
             add_layer_norm(h[:, :6].contiguous(), h[:, :6].contiguous(),
                            w[:6], w[:6], 1e-5)
